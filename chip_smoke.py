@@ -2,15 +2,30 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from csrc/, holds it against its plain
-PyTorch version on the card, then drives FilterReads `--mesh 1` through the
-port's CLI entry point (`kmernator_tpu_torch.apps.filter_reads.run`), on
-the streaming engine (a ~256 MB FASTQ, whose table fills the 64M-row
-clamp) and on the in-memory engine with device lookup (~32 MB), and
-requires every output file to be byte-identical to the host engine's
-(`python -m kmernator_tpu.apps.filter_reads`, no mesh). Fails (non-zero
-exit, no result line) without a CUDA device, outside a checkout, or when
-any phase fails. Imports no jax.
+Builds the port's CUDA kernels from csrc/ (one nvcc for each source, all
+started together) and drives the port's paths on the card:
+
+  1. the card; 2. the build;
+  3. the run-length kernel against its plain PyTorch version, bit-equal;
+  4. FilterReads `--streaming --mesh 1` through the port's CLI entry point
+     (`kmernator_tpu_torch.apps.filter_reads.run`) on a ~256 MB FASTQ,
+     whose table fills the 64M-row clamp, and
+  5. the in-memory `--mesh 1` engine with device lookup (~32 MB): every
+     output file byte-identical to the JAX package's host engine, run as a
+     separate program (`python -m kmernator_tpu.apps.filter_reads`, no
+     mesh) as the oracle;
+  6. the merge-path sort kernels (local_sort_blocks, merge_level) against
+     their plain versions, bit-equal, at the edge cases and at the main
+     path's shapes, with their times beside torch.sort's;
+  7. count_batch on 131,072 reads of 100 bp at k=31 (9,175,040 windows):
+     under KMTPU_MERGE_SORT=1 through the sort kernels and without it
+     through torch.sort, bit-equal to each other and to a numpy
+     np.unique oracle.
+
+Inputs come from the port's own generator and from seeded numpy. Fails
+(non-zero exit, no result line) without a CUDA device, outside a
+checkout, or when any phase fails, and at its end if any module of jax or
+of the JAX package is loaded in this process.
 
 Output: one line per phase, the card's `name, power.limit`, a JSON line of
 per-kernel results, and last `{"ok": true, "device": {...}}`.
@@ -22,7 +37,9 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -31,6 +48,11 @@ FLAGS = ["--kmer-scoring-type", "MEDIAN", "--mask-simple-repeats", "0",
          "--artifact-edit-distance", "1", "--min-read-length", "25"]
 DRAIN_ROWS = (64 << 20) + (32 << 20)   # drain at cap + cap // 2, cap = 64M
 BATCH_ROWS = 2048 * 120                # one count_batch of 2048 x 120
+COUNT_READS, COUNT_LEN, K = 131072, 100, 31   # the bench's round-1 batch
+COUNT_ROWS = COUNT_READS * (COUNT_LEN - K + 1)   # 9,175,040 = 70 blocks
+BLOCK, CHUNK = 1 << 17, 1 << 15       # merge_sort_2key's defaults
+HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
+SOURCES = ("run_length", "merge_sort")
 
 
 def log(msg: str) -> None:
@@ -57,6 +79,11 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def bytes_bound_ms(nbytes: float) -> float:
+    """Least time to move nbytes at the card's data-sheet memory rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def sorted_lanes(n: int, n_keys: int, gen: torch.Generator,
@@ -134,7 +161,8 @@ def phase_kernel(rl):
 def generate(path: str, genome_mb: str) -> int:
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m",
-                    "kmernator_tpu.apps.generate_metagenome", "--genomes",
+                    "kmernator_tpu_torch.apps.generate_metagenome",
+                    "--genomes",
                     "20", "--total-genome-mb", genome_mb, "--coverage", "20",
                     "--read-length", "150", "--seed", "7", "--out", path],
                    check=True, env=env_with_root())
@@ -151,6 +179,40 @@ def outputs(prefix: str):
     d, base = os.path.split(prefix)
     return {n[len(base):]: os.path.join(d, n)
             for n in sorted(os.listdir(d)) if n.startswith(base)}
+
+
+def host_engine(out: str, fq: str, extra_env) -> None:
+    """The oracle: the JAX package's host engine (no mesh), run as a
+    separate program."""
+    subprocess.run([sys.executable, "-m", "kmernator_tpu.apps.filter_reads",
+                    "--out", out] + FLAGS + ["31", fq], check=True,
+                   env=env_with_root(**extra_env))
+
+
+def build_host_libraries() -> None:
+    """Both engines build native/io_native.cpp with g++ at first use: the
+    port into build/, the JAX host engine into native/. Build both here, as
+    set-up, so that neither build lands in a timed FilterReads run."""
+    from kmernator_tpu_torch.io import native
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise SystemExit("the port's native IO library did not build")
+    log("phase 2 build: native/io_native.cpp with g++ for the port in "
+        "%.2f s" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    fq = os.path.join(WORK, "tiny.fastq")
+    rng = np.random.default_rng(1)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(fq, "wb") as f:
+        for i in range(200):
+            f.write(b"@w%d\n%s\n+\n%s\n" % (
+                i, acgt[rng.integers(0, 4, 80)].tobytes(), b"I" * 80))
+    host_engine(os.path.join(WORK, "warm"), fq, {})
+    for path in outputs(os.path.join(WORK, "warm")).values():
+        os.remove(path)
+    os.remove(fq)
+    log("phase 2 build: the host engine's first run (its g++ build of "
+        "native/io_native.cpp) in %.2f s" % (time.perf_counter() - t0))
 
 
 def phase_app(name: str, fq: str, n_reads: int, rl, extra_env):
@@ -189,9 +251,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env):
     if rc != 0:
         raise SystemExit("%s: port FilterReads exited %d" % (name, rc))
     t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-m", "kmernator_tpu.apps.filter_reads",
-                    "--out", host_out] + FLAGS + ["31", fq], check=True,
-                   env=env_with_root(**extra_env))
+    host_engine(host_out, fq, extra_env)
     t_host = time.perf_counter() - t0
     mine, want = outputs(port_out), outputs(host_out)
     if not want or set(mine) != set(want):
@@ -222,12 +282,231 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env):
     return launches
 
 
+def count_codes(seed: int = 11):
+    """COUNT_READS reads of COUNT_LEN bases (codes 0..3) sampled from a 2 Mb
+    random genome with 0.5% substitutions, so k-mers repeat: [B, L] u8."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 2_000_000, dtype=np.uint8)
+    starts = rng.integers(0, genome.size - COUNT_LEN, COUNT_READS)
+    codes = genome[starts[:, None] + np.arange(COUNT_LEN)[None, :]]
+    err = rng.random(codes.shape) < 0.005
+    codes = np.where(err, (codes + rng.integers(1, 4, codes.shape)) % 4,
+                     codes).astype(np.uint8)
+    lengths = np.full(COUNT_READS, COUNT_LEN, np.int32)
+    return codes, lengths
+
+
+def count_lanes(codes, lengths):
+    """The count path's masked key lanes, as count_batch forms them."""
+    from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE, encode_lane
+    from kmernator_tpu_torch.parallel.device_spectrum import (
+        extract_canonical_cols)
+    cols, _, valid = extract_canonical_cols(
+        torch.from_numpy(codes).cuda(), torch.from_numpy(lengths).cuda(), K)
+    cols = [c.reshape(-1) for c in cols]
+    valid = valid.reshape(-1)
+    lanes = torch.where(valid, encode_lane(cols),
+                        torch.full((), SENTINEL_LANE, dtype=torch.int64,
+                                   device="cuda"))
+    return cols, valid, lanes
+
+
+def drain_lanes(gen: torch.Generator) -> torch.Tensor:
+    """A drain's DRAIN_ROWS lanes: a sorted 64M-row table (30M distinct
+    keys, then an 8M-row sentinel tail) followed by 32M staged rows in
+    arrival order."""
+    from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE
+    table = sorted_lanes(64 << 20, 30 << 20, gen, 8 << 20)
+    ids = torch.randint(0, 40 << 20, (32 << 20,), generator=gen,
+                        device="cuda")
+    staged = ids * -0x61C8864680B583EB // 3
+    staged[torch.rand(staged.shape, generator=gen, device="cuda")
+           < 0.1] = SENTINEL_LANE
+    return torch.cat([table, staged])
+
+
+def phase_sort(ms, count_path_lanes):
+    """Sort kernels vs plain versions on the card, bit-equal, at the edge
+    cases of tests/test_pallas_sort.py and at the main path's shapes; device
+    times at the main path's shapes."""
+    from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def rand_lanes(n, lo=-(1 << 62), hi=1 << 62):
+        return torch.randint(lo, hi, (n,), generator=gen, device="cuda")
+
+    def dup_sentinels(n):
+        x = rand_lanes(n, -30, 30)
+        x[torch.rand(n, generator=gen, device="cuda") < 0.05] = SENTINEL_LANE
+        return x
+
+    edge = [  # (name, lanes, block, chunk)
+        ("below_one_block", rand_lanes(3000), 4096, 1024),
+        ("not_block_multiple", dup_sentinels(4096 * 7 - 1000), 4096, 1024),
+        ("odd_runs_7_blocks", dup_sentinels(4096 * 7), 4096, 1024),
+        ("bench_70_blocks_scaled", dup_sentinels(70 * 2048), 2048, 1024),
+        ("all_equal", torch.full((5 * BLOCK + 17,), 42, dtype=torch.int64,
+                                 device="cuda"), BLOCK, CHUNK),
+        ("5pct_sentinels", dup_sentinels(3 * BLOCK), BLOCK, CHUNK),
+        ("sign_bit_keys", rand_lanes(3 * BLOCK + 5, -(1 << 62), 0),
+         BLOCK, CHUNK),
+        ("random_full_width", torch.randint(
+            -(1 << 63), (1 << 63) - 1, (9 * BLOCK + 123,), generator=gen,
+            device="cuda"), BLOCK, CHUNK),
+    ]
+    shapes = {"count_9.2M": count_path_lanes, "drain_96M": drain_lanes(gen)}
+    max_err = 0.0
+    for name, lanes, block, chunk in edge + [(n, x, BLOCK, CHUNK)
+                                             for n, x in shapes.items()]:
+        got = ms.merge_sort_lanes(lanes, block, chunk)
+        want = ms.merge_sort_lanes_plain(lanes, block, chunk)
+        torch.cuda.synchronize()
+        if lanes.numel():
+            max_err = max(max_err, float(
+                (got.double() - want.double()).abs().max()))
+        if not (torch.equal(got, want)
+                and torch.equal(want, torch.sort(lanes).values)):
+            raise SystemExit("merge sort kernels disagree with their plain "
+                             "versions on %s" % name)
+        padded = ms.pad_to_block(lanes, block)
+        if not torch.equal(ms.local_sort_blocks(padded, block),
+                           ms.local_sort_blocks_plain(padded, block)):
+            raise SystemExit("local_sort_blocks disagrees with its plain "
+                             "version on %s" % name)
+        log("sort %-24s n=%-10d block=%-7d bit-equal"
+            % (name, lanes.numel(), block))
+    del edge
+    times = {}
+    for name, lanes in shapes.items():
+        N = lanes.numel()
+        padded = ms.pad_to_block(lanes, BLOCK)
+        Np = padded.numel()
+        blocks = ms.local_sort_blocks(padded, BLOCK)
+        runs = [(i * BLOCK, BLOCK) for i in range(Np // BLOCK)]
+
+        def all_levels():
+            s, r = blocks, runs
+            while len(r) > 1:
+                s, r = ms.merge_level(s, r, CHUNK)
+            return s
+
+        def all_levels_plain():
+            s, r = blocks, runs
+            while len(r) > 1:
+                s, r = ms.merge_level_plain(s, r), ms._pair_runs(r)[1]
+            return s
+
+        levels = max(len(runs) - 1, 0).bit_length()
+        reps = 5 if name == "drain_96M" else 20
+        # plain, kernel, kernel, plain: each the mean of its two turns
+        t = {}
+        for key, fn, r in (
+                ("plain", lambda: ms.merge_sort_lanes_plain(lanes), 1),
+                ("kernel", lambda: ms.merge_sort_lanes(lanes), reps),
+                ("local", lambda: ms.local_sort_blocks(padded, BLOCK), reps),
+                ("levels", all_levels, reps),
+                ("torch_sort", lambda: torch.sort(lanes).values, reps),
+                ("torch_block_sort", lambda: torch.sort(
+                    padded.view(-1, BLOCK), dim=1).values, reps),
+                ("local_plain", lambda: ms.local_sort_blocks_plain(
+                    padded, BLOCK), reps),
+                ("levels_plain", all_levels_plain, 1)):
+            t.setdefault(key, []).append(cuda_ms(fn, r))
+        for key, fn, r in (
+                ("kernel", lambda: ms.merge_sort_lanes(lanes), reps),
+                ("plain", lambda: ms.merge_sort_lanes_plain(lanes), 1)):
+            t[key].append(cuda_ms(fn, r))
+        times[name] = {k: sum(v) / len(v) for k, v in t.items()}
+        times[name].update(n=N, padded=Np, n_levels=levels,
+                           max_abs_err=max_err)
+        tm = times[name]
+        log("sort %-10s N=%d: local %.4f ms (plain %.4f, torch.sort of "
+            "blocks %.4f), %d merge levels %.4f ms (plain %.4f), whole "
+            "merge sort %.4f ms (plain %.4f), torch.sort %.4f ms; bound "
+            "%.4f ms a pass at 16 B/row"
+            % (name, N, tm["local"], tm["local_plain"],
+               tm["torch_block_sort"], levels, tm["levels"],
+               tm["levels_plain"], tm["kernel"], tm["plain"],
+               tm["torch_sort"], bytes_bound_ms(16 * Np)))
+    del shapes
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_count(ms, rl, smi: str):
+    """count_batch on the count path, merge-sort route and torch.sort route:
+    bit-equal to each other and to a numpy oracle; launches read around
+    each route."""
+    from kmernator_tpu_torch.parallel.device_spectrum import count_batch
+    codes, lengths = count_codes()
+    cols, valid, _ = count_lanes(codes, lengths)
+    N = valid.numel()
+    if N != COUNT_ROWS:
+        raise SystemExit("count path has %d windows, expected %d"
+                         % (N, COUNT_ROWS))
+    saved = os.environ.get("KMTPU_MERGE_SORT")
+    out = {}
+    try:
+        for route, env in (("merge_sort", "1"), ("torch_sort", None)):
+            if env is None:
+                os.environ.pop("KMTPU_MERGE_SORT", None)
+            else:
+                os.environ["KMTPU_MERGE_SORT"] = env
+            ms.launches.update(local_sort_blocks=0, merge_level=0)
+            rl.launches = 0
+            res = count_batch(cols, valid, min_count=1)
+            torch.cuda.synchronize()
+            counts = (dict(ms.launches), rl.launches)
+            t = cuda_ms(lambda: count_batch(cols, valid, min_count=1), 10)
+            out[route] = (res, counts, t)
+    finally:
+        if saved is None:
+            os.environ.pop("KMTPU_MERGE_SORT", None)
+        else:
+            os.environ["KMTPU_MERGE_SORT"] = saved
+    (mres, (m_ms, m_rl), m_t) = out["merge_sort"]
+    (tres, (t_ms, t_rl), t_t) = out["torch_sort"]
+    if not all(torch.equal(a, b) for a, b in zip(mres, tres)):
+        raise SystemExit("count_batch: the merge-sort route disagrees with "
+                         "the torch.sort route")
+    if min(m_ms.values()) <= 0 or m_rl <= 0:
+        raise SystemExit("count_batch under KMTPU_MERGE_SORT=1 did not "
+                         "launch every kernel: %s, run_length %d"
+                         % (m_ms, m_rl))
+    if max(t_ms.values()) != 0 or t_rl <= 0:
+        raise SystemExit("count_batch without KMTPU_MERGE_SORT launched %s, "
+                         "run_length %d" % (t_ms, t_rl))
+    # numpy oracle on the host
+    v = valid.cpu().numpy()
+    keys = ((cols[0].cpu().numpy().astype(np.uint64) << np.uint64(32))
+            | cols[1].cpu().numpy().astype(np.uint64))[v]
+    u, c = np.unique(keys, return_counts=True)
+    out_keys, table_counts, n_unique = (x.cpu().numpy() for x in mres)
+    kept = table_counts > 0
+    got = (out_keys[kept, 0].astype(np.uint64) << np.uint64(32)) \
+        | out_keys[kept, 1].astype(np.uint64)
+    if not (int(n_unique) == u.size and np.array_equal(got, u)
+            and np.array_equal(table_counts[kept], c)):
+        raise SystemExit("count_batch disagrees with the numpy oracle")
+    log("count %d windows (%d reads x %d bp, k=%d): %d distinct keys, "
+        "bit-equal on both routes and to np.unique; launches merge-sort "
+        "route %s + run_length %d, torch.sort route %s + run_length %d"
+        % (N, COUNT_READS, COUNT_LEN, K, u.size, m_ms, m_rl, t_ms, t_rl))
+    log("count merge-sort route %.4f ms = %.4g windows/s; torch.sort route "
+        "%.4f ms = %.4g windows/s [%s]"
+        % (m_t, N / (m_t * 1e-3), t_t, N / (t_t * 1e-3), smi))
+    return {"merge_sort": m_ms, "run_length": m_rl + t_rl,
+            "merge_ms": m_t, "torch_ms": t_t}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from kmernator_tpu_torch.kernels import build
+    from kmernator_tpu_torch.parallel import merge_sort as ms
     from kmernator_tpu_torch.parallel import run_length as rl
     os.makedirs(WORK, exist_ok=True)
 
@@ -240,10 +519,15 @@ def main() -> int:
            torch.cuda.device_count(), time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    build.load("run_length")
-    log("phase 2 build: csrc/run_length.cu with nvcc %s in %.2f s (%s)"
-        % (" ".join(build.ARCH_FLAGS), build.build_seconds["run_length"],
-           os.path.relpath(build.library_path("run_length"), ROOT)))
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build.build, SOURCES))   # one nvcc a source, together
+    for name in SOURCES:
+        build.load(name)
+        log("phase 2 build: csrc/%s.cu with nvcc %s in %.2f s (%s)"
+            % (name, " ".join(build.ARCH_FLAGS), build.build_seconds[name],
+               os.path.relpath(build.library_path(name), ROOT)))
+    log("phase 2 build: %.2f s in all" % (time.perf_counter() - t0))
+    build_host_libraries()
 
     t0 = time.perf_counter()
     max_err, times = phase_kernel(rl)
@@ -265,7 +549,26 @@ def main() -> int:
     os.remove(fq)
     log("phase 5 in-memory slice ok [%.1f s]" % (time.perf_counter() - t0))
 
+    t0 = time.perf_counter()
+    codes, lengths = count_codes()
+    sort_times = phase_sort(ms, count_lanes(codes, lengths)[2])
+    del codes, lengths
+    log("phase 6 sort kernels vs plain: bit-equal [%.1f s]"
+        % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    count = phase_count(ms, rl, smi)
+    launches += count["run_length"]
+    log("phase 7 count path ok [%.1f s]" % (time.perf_counter() - t0))
+
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "kmernator_tpu"))
+    if loaded:
+        raise SystemExit("jax or the JAX package was imported: %s" % loaded)
+
     k_ms, p_ms = times["drain_96M"]
+    c = sort_times["count_9.2M"]
+    d = sort_times["drain_96M"]
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",
@@ -273,9 +576,42 @@ def main() -> int:
         "replaces": "kmernator_tpu/parallel/pallas_count.py:159",
         "launches": launches, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": bytes_bound_ms(16 * DRAIN_ROWS), "bound_by": "bytes",
+        "library_ms": None,
         "shape": "drain %d rows" % DRAIN_ROWS,
         "batch_ms": times["count_batch_2048x120"][0],
-        "batch_plain_ms": times["count_batch_2048x120"][1]}]}))
+        "batch_plain_ms": times["count_batch_2048x120"][1]}, {
+        "name": "local_sort_blocks", "route": "cuda",
+        "source": "kmernator_tpu_torch/csrc/merge_sort.cu",
+        "replaces": "kmernator_tpu/parallel/pallas_sort.py:360",
+        "launches": count["merge_sort"]["local_sort_blocks"],
+        "max_abs_err": c["max_abs_err"],
+        "ms": c["local"], "plain_ms": c["local_plain"],
+        "bound_ms": bytes_bound_ms(16 * c["padded"]), "bound_by": "bytes",
+        "library_ms": c["torch_block_sort"],
+        "torch_ms": c["torch_block_sort"],
+        "shape": "count_9.2M: %d rows, block %d" % (c["padded"], BLOCK),
+        "drain_ms": d["local"], "drain_plain_ms": d["local_plain"],
+        "drain_bound_ms": bytes_bound_ms(16 * d["padded"]),
+        "drain_library_ms": d["torch_block_sort"]}, {
+        "name": "merge_level", "route": "cuda",
+        "source": "kmernator_tpu_torch/csrc/merge_sort.cu",
+        "replaces": "kmernator_tpu/parallel/pallas_sort.py:203",
+        "launches": count["merge_sort"]["merge_level"],
+        "max_abs_err": c["max_abs_err"],
+        "ms": c["levels"], "plain_ms": c["levels_plain"],
+        "bound_ms": bytes_bound_ms(16 * c["padded"] * c["n_levels"]),
+        "bound_by": "bytes", "library_ms": None,
+        "shape": "count_9.2M: all %d levels, chunk %d" % (c["n_levels"],
+                                                           CHUNK),
+        "merge_sort_ms": c["kernel"], "merge_sort_plain_ms": c["plain"],
+        "merge_sort_bound_ms": bytes_bound_ms(16 * c["n"]),
+        "torch_sort_ms": c["torch_sort"],
+        "drain_ms": d["levels"], "drain_levels": d["n_levels"],
+        "drain_merge_sort_ms": d["kernel"],
+        "drain_torch_sort_ms": d["torch_sort"],
+        "count_batch_merge_ms": count["merge_ms"],
+        "count_batch_torch_ms": count["torch_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,26 +4,46 @@ Twins of kmernator_tpu/parallel/device_spectrum.py: `extract_canonical_cols`
 (with `_shift_left_cols`) and `count_batch`, plus copies of the numpy-only
 host helpers `pack_readset`, `ragged_to_padded` and `padded_to_ragged`
 (copied, not imported: the JAX module imports jax). Words are int64 in
-[0, 2^32) (ops/kmer.py); `count_batch` sorts one int64 key lane and takes
-its run totals from the run-length kernel (parallel/run_length.py).
+[0, 2^32) (ops/kmer.py); `count_batch` sorts one int64 key lane, with the
+merge-path sort kernels (parallel/merge_sort.py) where `_use_merge_sort`
+says so and with torch.sort otherwise, and takes its run totals from the
+run-length kernel (parallel/run_length.py).
 """
 from __future__ import annotations
 
+import os
 from typing import List, Sequence, Union
 
 import numpy as np
 import torch
 
+from kmernator_tpu_torch.io.reads import BASE_CODE
 from kmernator_tpu_torch.ops.kmer import (MASK32, SENTINEL_LANE,
                                           SENTINEL_WORD, decode_lane,
                                           encode_lane,
-                                          last_word_mask, nwords, pack16,
-                                          reverse_bases)
+                                          last_word_mask, nwords,
+                                          pack16_torch, reverse_bases)
+from kmernator_tpu_torch.ops.weights import probability_table
+from kmernator_tpu_torch.parallel.merge_sort import merge_sort_lanes
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
 
 # device batch of the non-TPU default (kmernator_tpu device_spectrum
 # auto_mesh_batch); no measurement on the card has chosen another yet
 DEFAULT_BATCH_READS = 2048
+
+
+def _use_merge_sort(N: int, W: int, device: torch.device) -> bool:
+    """Route count_batch's sort through the merge-path sort kernels
+    (parallel/merge_sort.py): the JAX package's gate (its
+    device_spectrum.py `_use_merge_sort`) with a CUDA tensor standing where
+    its TPU backend stands. 2-word keys, N >= 2^20 and KMTPU_MERGE_SORT in
+    ("1", "on", "true"); off by default, and off on the CPU, as the JAX
+    gate is off its TPU."""
+    if W != 2 or N < (1 << 20):
+        return False
+    if os.environ.get("KMTPU_MERGE_SORT", "0") not in ("1", "on", "true"):
+        return False
+    return torch.device(device).type == "cuda"
 
 
 # --------------------------------------------------------------------------
@@ -36,9 +56,6 @@ def pack_readset(rs, L: int, min_quality: int, output_base: int):
     logp is log2(P(correct)) with -inf (here: -1e30) for zero-probability
     bases; markup positions also get -inf so windows covering them weigh 0.
     """
-    from kmernator_tpu.io.reads import BASE_CODE
-    from kmernator_tpu.ops.weights import probability_table
-
     B = rs.n
     codes = np.zeros((B, L), dtype=np.uint8)
     logp = np.full((B, L), np.float32(-1e30), dtype=np.float32)
@@ -114,7 +131,7 @@ def extract_canonical_cols(codes: torch.Tensor, lengths: torch.Tensor,
     B, L = codes.shape
     W = nwords(k)
     NW = L - k + 1
-    p16 = pack16(codes)
+    p16 = pack16_torch(codes)
     fwd = []
     for w in range(W):
         start = 16 * w
@@ -160,7 +177,10 @@ def count_batch(keys: Union[torch.Tensor, Sequence[torch.Tensor]],
                       device=cols[0].device)
     # pre-mask bad windows to the sentinel so only good observations count
     lanes = torch.where(good, encode_lane(cols), sent)
-    s = torch.sort(lanes).values
+    if _use_merge_sort(N, W, lanes.device):
+        s = merge_sort_lanes(lanes)
+    else:
+        s = torch.sort(lanes).values
     # every row counts 1, so each run total is the run's length, at its end
     ends_total = run_length_sums(
         s, torch.ones(N, dtype=torch.int32, device=s.device))

@@ -17,10 +17,15 @@ the identity:
            the sorted table.
 
 The table is one int64 key lane, int32 counts and float32 weights, each
-[cap] on the mesh's device. Run weights are summed in float64 and rounded
-once to float32; the JAX package differences a float32 prefix sum, so
-weights agree to about 1e-6 of the drain's total weight, while keys and
-counts are bit-equal.
+[cap] on the mesh's device. Keys and counts are bit-equal to the JAX
+drain's. Run weights are taken the JAX drain's way (its mesh_stream.py
+`_drain_fn`): a float32 inclusive prefix sum over the whole sorted drain,
+the run's prefix at its end less the exclusive prefix at its start. The
+prefix sums round in another order than XLA's (torch accumulates a CPU
+float32 cumsum in float64 and a CUDA one in a float32 tree scan; the
+sorts also order equal keys differently), so a run weight differs from
+the JAX one by a few float32 ulps of the drain's total weight: the tests
+hold them to 1e-6 of it.
 
 Not ported yet (off both D=1 FilterReads paths): grow-on-pressure
 (max_capacity, _maybe_grow), purge_min_depth, purge_variants_mesh and
@@ -39,6 +44,7 @@ from kmernator_tpu_torch.parallel.device_spectrum import (
     extract_canonical_cols)
 from kmernator_tpu_torch.parallel.mesh import Mesh
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
+from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
 
 
 # wire format: base codes cross the host->device link 2-bit packed and
@@ -163,10 +169,14 @@ class MeshStreamingSpectrum:
         ends = torch.nonzero(is_end).squeeze(1)
         run_keys = skeys[ends]
         run_counts = totals[ends]
-        wcum = torch.cumsum(weights[perm], 0, dtype=torch.float64)[ends]
-        run_w = (wcum - torch.cat([wcum.new_zeros(1), wcum[:-1]])).to(
-            torch.float32)
-        del skeys, perm, totals, is_end, ends, wcum
+        # run weights as the JAX drain takes them: a float32 inclusive
+        # prefix sum, at the run's end less the exclusive one at its start
+        sw = weights[perm]
+        wcum = torch.cumsum(sw, 0, dtype=torch.float32)
+        starts = torch.zeros_like(ends)
+        starts[1:] = ends[:-1] + 1
+        run_w = wcum[ends] - (wcum[starts] - sw[starts])
+        del skeys, perm, totals, is_end, ends, starts, sw, wcum
         # 2) priority compaction to cap rows: solid runs first, then
         # singletons, each in key order (the JAX (prio, key) sort); the
         # selection keeps key order, so the table needs no re-sort
@@ -251,7 +261,6 @@ class MeshStreamingSpectrum:
 
     def finalize(self, min_depth: int = 2, with_weights: bool = False):
         """Table to host: (keys [M, W] u32 sorted, counts [, weights])."""
-        from kmernator_tpu.parallel.spectrum import pack_keys
         self._drain()
         cnt = self.table_counts.cpu().numpy()
         wt = self.table_weights.cpu().numpy()
@@ -268,7 +277,6 @@ class MeshStreamingSpectrum:
         return keys[order], counts[order].astype(np.int64)
 
     def to_host_spectrum(self, min_depth: int = 2):
-        from kmernator_tpu.parallel.spectrum import KmerSpectrum, pack_keys
         keys, counts, weights = self.finalize(min_depth, with_weights=True)
         sp = KmerSpectrum(k=self.k)
         sp.keys = pack_keys(keys) if len(keys) else np.zeros(0, np.uint64)

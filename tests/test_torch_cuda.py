@@ -5,15 +5,18 @@ installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 The CUDA results are held to the same function on CPU tensors, which takes
-the plain PyTorch versions. Tolerance: none for keys, counts and lookups;
-weights to 1e-6 relative (float64 prefix sums taken in another order).
+the plain PyTorch versions. Tolerance: none for keys, counts, lookups and
+sorted lanes; table weights to 1e-6 of the total weight the table has
+taken in (both are differences of float32 prefix sums over a drain, which
+the card's scan rounds in another order than the CPU's).
 """
 import numpy as np
 import pytest
 import torch
 
-from kmernator_tpu_torch.ops.kmer import encode_lane
+from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE, encode_lane
 from kmernator_tpu_torch.parallel import device_spectrum as ds
+from kmernator_tpu_torch.parallel import merge_sort as ms
 from kmernator_tpu_torch.parallel import run_length as rl
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
@@ -76,6 +79,7 @@ def test_mesh_stream_matches_cpu(cuda_device):
                                      drain_threshold=2 * B * NW)
                for dev in ("cpu", cuda_device)]
     batches = []
+    w_in = 0.0
     for _ in range(6):
         codes = genome[rng.integers(0, 3000 - L, B)[:, None]
                        + np.arange(L)[None, :]]
@@ -83,13 +87,14 @@ def test_mesh_stream_matches_cpu(cuda_device):
         lengths = rng.integers(k - 1, L + 1, B).astype(np.int32)
         good = rng.random((B, NW)) < 0.9
         weights = rng.random((B, NW)).astype(np.float32)
+        w_in += float(weights[good].sum())
         batches.append((codes, good, lengths))
         for sp in spectra:
             sp.add_batch(codes, good, lengths, weights2d=weights)
         cpu, dev = (sp.to_numpy_tables() for sp in spectra)
         assert np.array_equal(cpu[0], dev[0])
         assert np.array_equal(cpu[1], dev[1])
-        np.testing.assert_allclose(dev[2], cpu[2], rtol=1e-6, atol=0)
+        np.testing.assert_allclose(dev[2], cpu[2], rtol=0, atol=1e-6 * w_in)
     assert spectra[1].drains >= 2
     assert spectra[1].purged_singletons == spectra[0].purged_singletons > 0
     assert spectra[1].table_keys.device.type == "cuda"
@@ -98,3 +103,82 @@ def test_mesh_stream_matches_cpu(cuda_device):
         assert np.array_equal(
             spectra[0].lookup_batch(codes, want, lengths, min_count=2),
             spectra[1].lookup_batch(codes, want, lengths, min_count=2))
+
+
+def _sort_case(name, n, rng):
+    """int64 lanes for the sort kernels' edge cases."""
+    if name == "all_equal":
+        return np.full(n, 42, np.int64)
+    if name == "sign_bit":
+        return -rng.integers(1, 1 << 62, n)
+    keys = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+    if name == "dups_sentinels":
+        keys = rng.integers(-40, 40, n).astype(np.int64)
+        keys[rng.random(n) < 0.05] = SENTINEL_LANE
+    return keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,block,chunk", [
+    (1000, 4096, 1024),            # below one block
+    (1 << 14, 4096, 1024),
+    (4096 * 7 - 1000, 4096, 1024),  # sentinel padding, odd run counts
+    (70 * 2048, 2048, 1024),
+    (3 * (1 << 17) + 5, 1 << 17, 1 << 15),   # blocks above the CTA tile
+])
+@pytest.mark.parametrize("case", ["random", "dups_sentinels", "all_equal",
+                                  "sign_bit"])
+def test_merge_sort_kernels_match_plain(cuda_device, N, block, chunk, case):
+    rng = np.random.default_rng(N)
+    lanes = torch.from_numpy(_sort_case(case, N, rng))
+    want = ms.merge_sort_lanes(lanes, block, chunk)      # CPU: plain
+    assert torch.equal(want, torch.sort(lanes).values)
+    before = dict(ms.launches)
+    got = ms.merge_sort_lanes(lanes.to(cuda_device), block, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert ms.launches["local_sort_blocks"] == before["local_sort_blocks"] + 1
+    levels = max(-(-N // block) - 1, 0).bit_length()
+    assert ms.launches["merge_level"] == before["merge_level"] + levels
+
+
+@pytest.mark.cuda
+def test_merge_sort_empty_on_the_card(cuda_device):
+    before = dict(ms.launches)
+    empty = torch.empty(0, dtype=torch.int64, device=cuda_device)
+    got = ms.merge_sort_lanes(empty, 4096, 1024)
+    assert got.device.type == "cuda" and got.numel() == 0
+    assert ms.merge_level(empty, [], 1024)[1] == []
+    assert ms.launches == before
+
+
+@pytest.mark.cuda
+def test_merge_level_kernel_matches_plain(cuda_device):
+    rng = np.random.default_rng(3)
+    lanes = torch.from_numpy(_sort_case("dups_sentinels", 5 * 3072, rng))
+    runs = [(i * 3072, 3072) for i in range(5)]
+    s = lanes.view(5, 3072).sort(dim=1).values.reshape(-1)
+    want, want_runs = ms.merge_level(s, runs, 1024)
+    got, got_runs = ms.merge_level(s.to(cuda_device), runs, 1024)
+    assert got_runs == want_runs == [(0, 6144), (6144, 6144), (12288, 3072)]
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_count_batch_merge_sort_route(cuda_device, monkeypatch):
+    rng = np.random.default_rng(4)
+    n = (1 << 20) + 12345
+    words = rng.integers(0, 1 << 32, (n, 2), dtype=np.uint64).astype(np.int64)
+    words[n // 2:] = words[:n - n // 2]               # every key twice
+    good = torch.from_numpy(rng.random(n) < 0.9).to(cuda_device)
+    cols = [torch.from_numpy(words[:, w].copy()).to(cuda_device)
+            for w in range(2)]
+    monkeypatch.delenv("KMTPU_MERGE_SORT", raising=False)
+    before = dict(ms.launches)
+    want = ds.count_batch(cols, good, min_count=1)
+    assert ms.launches == before
+    monkeypatch.setenv("KMTPU_MERGE_SORT", "1")
+    got = ds.count_batch(cols, good, min_count=1)
+    assert ms.launches["merge_level"] > before["merge_level"]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

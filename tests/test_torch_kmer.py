@@ -16,7 +16,7 @@ def test_pack16_matches_jax():
         want = jk.pack16(np, codes)   # the host oracle takes any L
         if L >= 16:
             assert np.array_equal(np.asarray(jk.pack16(jnp, codes)), want)
-        got = tk.pack16(torch.from_numpy(codes)).numpy()
+        got = tk.pack16_torch(torch.from_numpy(codes)).numpy()
         assert np.array_equal(got, want.astype(np.int64))
         assert (got >= 0).all() and (got <= 0xFFFFFFFF).all()
 

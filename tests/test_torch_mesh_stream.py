@@ -2,10 +2,11 @@
 make_mesh(1): the same batches go through both.
 
 Tolerances: keys, counts, purge totals and lookup counts are bit-equal.
-Weights agree to 1e-6 x the total weight of the drain's input, because the
-JAX drain takes run weights as differences of a float32 prefix sum over
-the whole drain (mesh_stream.py:172-177) while the port sums each run in
-float64.
+Weights agree to 1e-6 x the total weight of the drain's input: both drains
+take run weights as differences of a float32 prefix sum over the whole
+drain (mesh_stream.py:172-177), but the sums round in another order (XLA's
+scan against torch's cumsum, and equal keys sorted in another order), so
+each run weight may differ by a few float32 ulps of that total.
 """
 import numpy as np
 import pytest
