@@ -20,7 +20,13 @@ started together) and drives the port's paths on the card:
   7. count_batch on 131,072 reads of 100 bp at k=31 (9,175,040 windows):
      under KMTPU_MERGE_SORT=1 through the sort kernels and without it
      through torch.sort, bit-equal to each other and to a numpy
-     np.unique oracle.
+     np.unique oracle;
+  8. the hash-insert kernel against its plain version through the
+     order-free invariants at its edge cases, its bench entry point
+     (`kmernator_tpu_torch.parallel.hash_insert.main`) at the JAX bench's
+     shape, and the canonical 16-mers of phase 7's reads (11,141,120
+     keys) into 2^24 slots and into the smallest table at load <= 0.9,
+     against np.unique, beside torch.unique and count_batch at k=16.
 
 Inputs come from the port's own generator and from seeded numpy. Fails
 (non-zero exit, no result line) without a CUDA device, outside a
@@ -38,6 +44,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -52,7 +59,9 @@ COUNT_READS, COUNT_LEN, K = 131072, 100, 31   # the bench's round-1 batch
 COUNT_ROWS = COUNT_READS * (COUNT_LEN - K + 1)   # 9,175,040 = 70 blocks
 BLOCK, CHUNK = 1 << 17, 1 << 15       # merge_sort_2key's defaults
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
-SOURCES = ("run_length", "merge_sort")
+SOURCES = ("run_length", "merge_sort", "hash_insert")
+HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
+K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 256 MiB table
 
 
 def log(msg: str) -> None:
@@ -500,12 +509,129 @@ def phase_count(ms, rl, smi: str):
             "merge_ms": m_t, "torch_ms": t_t}
 
 
+def hash_bound_ms(n: int, cap: int) -> Tuple[float, float]:
+    """(bound, sector bound) of one insert of n int64 keys into cap int64
+    slot keys and counts. The bound counts each input byte read once and
+    each output byte written once: 8 B a key, 16 B a slot, 8 B n_unique.
+    The sector bound adds the two 32-byte sectors (one of the key array,
+    one of the count array) each insert must touch at its slot."""
+    nbytes = 8 * n + 16 * cap + 8
+    return bytes_bound_ms(nbytes), bytes_bound_ms(nbytes + 64 * n)
+
+
+def phase_hash(hi, smi: str):
+    """The hash-insert kernel vs its plain version on the card through the
+    order-free invariants; the entry point's run, with the launches read
+    around it; the real shape against np.unique; device times."""
+    from kmernator_tpu_torch.parallel.device_spectrum import (
+        count_batch, extract_canonical_cols)
+    max_err = 0
+    for name, (keys, cap) in hi.edge_cases().items():
+        k = torch.from_numpy(keys)
+        want = hi.hash_insert_plain(k, cap)
+        got = hi.hash_insert(k.cuda(), cap)
+        torch.cuda.synchronize()
+        hi.check_invariants(keys, cap, *want)
+        max_err = max(max_err, hi.check_invariants(keys, cap, *got))
+        if not (torch.equal(got[2].cpu(), want[2]) and torch.equal(
+                got[0].cpu() != hi.EMPTY, want[0] != hi.EMPTY)):
+            raise SystemExit("hash_insert disagrees with its plain version "
+                             "on %s" % name)
+        log("hash %-16s n=%-6d cap=%-6d n_unique %d, invariants hold"
+            % (name, keys.size, cap, int(got[2][0])))
+    try:
+        hi.hash_insert(torch.arange(10, device="cuda"), 8)
+    except ValueError as e:
+        log("hash overflow raises: %s" % e)
+    else:
+        raise SystemExit("hash_insert did not raise on an overflowing table")
+
+    # the slice's main path: the bench entry point, counts read around it
+    hi.launches = 0
+    bench = hi.main(["--device", "cuda"])
+    launches = hi.launches
+    if launches <= 0:
+        raise SystemExit("the hash bench never launched the hash kernel")
+
+    t = {}
+    x = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 1 << 16, HASH_N)).cuda()
+    max_err = max(max_err, hi.check_invariants(
+        x, HASH_CAP, *hi.hash_insert(x, HASH_CAP)))
+    # plain, kernel, kernel, plain; the library call around them
+    for key, fn, reps in (
+            ("plain", lambda: hi.hash_insert_plain(x, HASH_CAP), 3),
+            ("library", lambda: torch.unique(x, return_counts=True), 200),
+            ("kernel", lambda: hi.hash_insert_launch(x, HASH_CAP), 200),
+            ("kernel", lambda: hi.hash_insert_launch(x, HASH_CAP), 200),
+            ("library", lambda: torch.unique(x, return_counts=True), 200),
+            ("plain", lambda: hi.hash_insert_plain(x, HASH_CAP), 3)):
+        t.setdefault(key, []).append(cuda_ms(fn, reps))
+    small = {k: sum(v) / len(v) for k, v in t.items()}
+    log("hash_1024: kernel %.4f ms, plain %.4f ms, torch.unique %.4f ms; "
+        "bound %.6f ms [%s]" % (small["kernel"], small["plain"],
+                                small["library"],
+                                hash_bound_ms(HASH_N, HASH_CAP)[0], smi))
+
+    codes, lengths = count_codes()
+    cols, _, valid = extract_canonical_cols(
+        torch.from_numpy(codes).cuda(), torch.from_numpy(lengths).cuda(), K16)
+    keys = cols[0].reshape(-1).contiguous()
+    N = keys.numel()
+    if N != COUNT_READS * (COUNT_LEN - K16 + 1) or not bool(valid.all()):
+        raise SystemExit("k=16 keys: %d windows, expected every one of %d "
+                         "valid" % (N, COUNT_READS * (COUNT_LEN - K16 + 1)))
+    if int(keys.max()) >= hi.EMPTY:
+        raise SystemExit("a canonical 16-mer equals the empty sentinel")
+    keys_np = keys.cpu().numpy()
+    got = hi.hash_insert(keys, K16_CAP)
+    max_err = max(max_err, hi.check_invariants(keys_np, K16_CAP, *got))
+    distinct = int(got[2][0])
+    cap_hl = 1 << (-(-distinct * 10 // 9) - 1).bit_length()
+    got = hi.hash_insert(keys, cap_hl)
+    max_err = max(max_err, hi.check_invariants(keys_np, cap_hl, *got))
+    del got
+    ones = torch.ones(N, dtype=torch.bool, device="cuda")
+    cb = count_batch([keys], ones, min_count=1)
+    uq = torch.unique(keys, return_counts=True)
+    if int(cb[2]) != distinct or uq[0].numel() != distinct:
+        raise SystemExit("count_batch (%d) or torch.unique (%d) disagrees "
+                         "with the hash's %d distinct 16-mers"
+                         % (int(cb[2]), uq[0].numel(), distinct))
+    del cb, uq
+    t = {}
+    # library, kernel, kernel, library; count_batch and the high load after
+    for key, fn, reps in (
+            ("library", lambda: torch.unique(keys, return_counts=True), 10),
+            ("kernel", lambda: hi.hash_insert_launch(keys, K16_CAP), 10),
+            ("kernel", lambda: hi.hash_insert_launch(keys, K16_CAP), 10),
+            ("library", lambda: torch.unique(keys, return_counts=True), 10),
+            ("count_batch", lambda: count_batch([keys], ones, 1), 10),
+            ("high_load", lambda: hi.hash_insert_launch(keys, cap_hl), 10)):
+        t.setdefault(key, []).append(cuda_ms(fn, reps))
+    real = {k: sum(v) / len(v) for k, v in t.items()}
+    real.update(n=N, distinct=distinct, cap_hl=cap_hl)
+    bound, sector = hash_bound_ms(N, K16_CAP)
+    log("hash_11.1M: %d keys, %d distinct, invariants hold at cap 2^24 and "
+        "at cap %d (load %.3f); kernel %.4f ms (bound %.4f, sector bound "
+        "%.4f), at load %.3f %.4f ms; torch.unique %.4f ms; count_batch "
+        "k=16 (torch.sort route) %.4f ms [%s]"
+        % (N, distinct, cap_hl, distinct / cap_hl, real["kernel"], bound,
+           sector, distinct / cap_hl, real["high_load"], real["library"],
+           real["count_batch"], smi))
+    del keys, ones
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": max_err, "small": small,
+            "real": real, "bench": bench}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     from kmernator_tpu_torch.kernels import build
+    from kmernator_tpu_torch.parallel import hash_insert as hi
     from kmernator_tpu_torch.parallel import merge_sort as ms
     from kmernator_tpu_torch.parallel import run_length as rl
     os.makedirs(WORK, exist_ok=True)
@@ -561,6 +687,11 @@ def main() -> int:
     launches += count["run_length"]
     log("phase 7 count path ok [%.1f s]" % (time.perf_counter() - t0))
 
+    t0 = time.perf_counter()
+    hs = phase_hash(hi, smi)
+    log("phase 8 hash insert: invariants hold, %d launches in the bench "
+        "[%.1f s]" % (hs["launches"], time.perf_counter() - t0))
+
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kmernator_tpu"))
     if loaded:
@@ -569,6 +700,7 @@ def main() -> int:
     k_ms, p_ms = times["drain_96M"]
     c = sort_times["count_9.2M"]
     d = sort_times["drain_96M"]
+    r = hs["real"]
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",
@@ -611,7 +743,28 @@ def main() -> int:
         "drain_merge_sort_ms": d["kernel"],
         "drain_torch_sort_ms": d["torch_sort"],
         "count_batch_merge_ms": count["merge_ms"],
-        "count_batch_torch_ms": count["torch_ms"]}]}))
+        "count_batch_torch_ms": count["torch_ms"]}, {
+        "name": "hash_insert", "route": "cuda",
+        "source": "kmernator_tpu_torch/csrc/hash_insert.cu",
+        "replaces": "kmernator_tpu/parallel/pallas_hash.py:87",
+        "launches": hs["launches"], "max_abs_err": hs["max_abs_err"],
+        "ms": hs["small"]["kernel"], "plain_ms": hs["small"]["plain"],
+        "bound_ms": hash_bound_ms(HASH_N, HASH_CAP)[0], "bound_by": "bytes",
+        "library_ms": hs["small"]["library"],
+        "library": "torch.unique(keys, return_counts=True): the same "
+                   "(key, count) multiset and n_unique, but no table",
+        "shape": "hash_1024: %d keys in [0, 2^16), cap %d (the bench)"
+                 % (HASH_N, HASH_CAP),
+        "bench_mkeys_per_s": hs["bench"]["mkeys_per_s"],
+        "k16_shape": "hash_11.1M: %d canonical 16-mers, %d distinct, cap "
+                     "2^24" % (r["n"], r["distinct"]),
+        "k16_ms": r["kernel"],
+        "k16_bound_ms": hash_bound_ms(r["n"], K16_CAP)[0],
+        "k16_sector_bound_ms": hash_bound_ms(r["n"], K16_CAP)[1],
+        "k16_library_ms": r["library"],
+        "count_batch_k16_ms": r["count_batch"],
+        "k16_high_load_cap": r["cap_hl"], "k16_high_load_ms": r["high_load"],
+        "k16_high_load_bound_ms": hash_bound_ms(r["n"], r["cap_hl"])[0]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -967,7 +967,8 @@ def _iter_pool(it, n_tasks: int, what: str, timeout_s: float = 0.0):
     into a hard error naming the phase — the streaming engine's failure
     detector (ref: the reference aborts the MPI world on worker death,
     src/MPIUtils.h).  The per-item timeout defaults to 900 s, tunable via
-    KMTPU_POOL_TIMEOUT_S: the same host has measured >10x bimodal wall
+    KMTPU_POOL_TIMEOUT_S: the JAX package's development host (a CPU
+    machine, not the H100's host) has measured >10x bimodal wall
     time under neighbor load (13 s vs 150 s for an identical 1 GiB run),
     so a loaded VM with large chunks can legitimately exceed a fixed
     cap while every worker is alive."""
@@ -1168,7 +1169,8 @@ def _run_streaming_parallel(opts, kopts, sopts, ropts, aopts, fopts, filt,
         # population, the tables replicate threads-fold, and random
         # probes beyond sum-of-tables ~ L3 go to DRAM.  est_pw/6 tracks
         # the unique fraction of a ~5x-coverage stream; measured on the
-        # 260 MB-L3 4-core host: 256 MB input wants 4M slots/worker
+        # JAX package's development host (a 260 MB-L3 4-core CPU machine,
+        # not the H100's host): 256 MB input wants 4M slots/worker
         # (spill 3.64 vs 4.58 core-s at the old est/2-sized 16M, -0.4 s
         # wall), 1 GiB wants 16M (14.4 vs 15.6 s capped at 4M).  Clamped
         # to the RAM budget and the 16M AggSpillCounter growth cap;
@@ -1179,7 +1181,7 @@ def _run_streaming_parallel(opts, kopts, sopts, ropts, aopts, fopts, filt,
         budget_slots = int(available_mb() * (1 << 20) / 4 / threads / slot_b)
         cand = max(min(est_pw // 6, 1 << 24, budget_slots), 1)
         # pow2 CEIL in [4M, 16M]: 256 MB (cand 3.6M) -> 4M, 1 GiB
-        # (cand 14.3M) -> 16M, the two measured optima
+        # (cand 14.3M) -> 16M, the two optima measured on that host
         agg_slots = min(1 << max(22, int(cand - 1).bit_length()), 1 << 24)
         if os.environ.get("KMTPU_AGG_SLOTS"):
             agg_slots = 1 << int(
@@ -1207,7 +1209,8 @@ def _run_streaming_parallel(opts, kopts, sopts, ropts, aopts, fopts, filt,
         _PAR["splitters"] = splitters
         # shared CAS count table (one table, all workers; the reference's
         # shared bucket map re-done for fork workers).  MEASURED NEGATIVE
-        # on this host, kept opt-in (KMTPU_SHCT=1) with the numbers:
+        # on the JAX package's development host (a 4-core CPU machine,
+        # not the H100's host), kept opt-in (KMTPU_SHCT=1) with the numbers:
         # interleaved A/B at 1 GiB ran 31-41 s shared vs 20-23 s private.
         # The hoped-for win (the 20x-repeated genome keys resident ONCE,
         # shared in L3) inverts under atomics: every fetch_add needs the
@@ -1254,7 +1257,9 @@ def _run_streaming_parallel(opts, kopts, sopts, ropts, aopts, fopts, filt,
         register_path(p2_dir)
         _PAR["p2_dir"] = p2_dir
         # pass-1 parsed-chunk cache (skips the pass-2 re-parse).
-        # MEASURED NEGATIVE with the native parse in place, kept opt-in
+        # MEASURED NEGATIVE with the native parse in place, on the JAX
+        # package's development host (a CPU machine, not the H100's
+        # host), kept opt-in
         # (KMTPU_RS_CACHE=1) with the numbers: interleaved 1 GiB A/B ran
         # 19.8-22.0 s cached vs 16.2-16.6 s re-parsing — the memchr
         # newline scan + fused-normalize gather parse (~80 ms/16 MB
@@ -1661,7 +1666,8 @@ def run(argv: List[str]) -> int:
         and all(os.path.exists(p) for p in opts.input_file)
         and all(_is_plain_fastq(p) for p in opts.input_file))
     # auto-engage threshold; env-tunable so the gate itself is testable.
-    # Default 2 MB = the measured engine crossover on this host (1 MB:
+    # Default 2 MB = the engine crossover measured on the JAX package's
+    # development host (a CPU machine, not the H100's host) (1 MB:
     # in-memory 0.56 s vs streaming 0.69 s; 4 MB: 1.7-1.9 vs 1.0-1.1;
     # 256 MB: 130 vs 5.2 s — all the round-2..5 perf work lives in the
     # streaming engine, and it is byte-compatible feature-for-feature,
@@ -1843,7 +1849,9 @@ def main():
     rc = run(sys.argv[1:])
     t1 = _t.perf_counter()
     # fast exit: temp teardown runs explicitly, then skip interpreter
-    # finalization (GC of multi-GB numpy heaps costs ~0.3 s per run)
+    # finalization (GC of multi-GB numpy heaps cost ~0.3 s per run as
+    # measured on the JAX package's development host, a CPU machine,
+    # not the H100's host)
     from kmernator_tpu_torch.utils import cleanup
     cleanup._flush()
     if os.environ.get("KMTPU_STAGE_TIMES"):

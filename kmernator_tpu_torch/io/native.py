@@ -560,7 +560,9 @@ def compact_good(keys: np.ndarray, good: np.ndarray, weights=None,
                  out_keys: np.ndarray = None, out_w: np.ndarray = None):
     """Native keys[good] (and weights[good]) into reusable buffers —
     numpy's boolean fancy-index allocates a fresh array per chunk, which
-    measured 9.9 core-s of page faults over a 1 GiB streaming pass 1.
+    measured 9.9 core-s of page faults over a 1 GiB streaming pass 1 on
+    the JAX package's development host (a CPU machine, not the H100's
+    host).
     Returns (gk view, gw view | None) or None when unavailable."""
     lib = get_lib()
     if lib is None or not hasattr(lib, "compact_good") \
@@ -719,7 +721,8 @@ class ObservationAggregator:
         unconsumed — they are compacted to keys[:rem]; export() then
         re-call with keys[:rem].  Falls back to -1 when unavailable.
 
-        Measured NEGATIVE on the dev host (260 MiB L3 keeps the table
+        Measured NEGATIVE on the JAX package's development host, a CPU
+        machine, not the H100's host (260 MiB L3 keeps the table
         cache-resident already — see native agg_insert_bucketed); kept
         with unit coverage, not wired into the spill path."""
         if self.track_weights or not hasattr(self._lib,
@@ -1106,7 +1109,8 @@ def gather_ragged_map(data: np.ndarray, offs: np.ndarray, lens: np.ndarray,
 def find_newlines(buf: np.ndarray):
     """Positions of '\\n' in buf (i64) via memchr — the numpy
     flatnonzero(buf == 0x0a) scan costs ~150 ms per 16 MB chunk; this is
-    ~10 ms.  None if the lib is unavailable."""
+    ~10 ms (both measured on the JAX package's development host, a CPU
+    machine, not the H100's host).  None if the lib is unavailable."""
     lib = get_lib()
     if lib is None or not hasattr(lib, "find_newlines"):
         return None

@@ -76,7 +76,9 @@ def window_weights(p: np.ndarray, offsets: np.ndarray, markup: np.ndarray,
     # grouped sequential cumprod: scatter runs into a [rows, runlen] matrix.
     # Done in bounded row blocks — bad windows fragment the runs, so n_runs
     # can approach N and a single dense [n_runs, maxlen] matrix reaches GBs
-    # (measured 2.2 GB transient on an 8 MB read chunk); blocking caps the
+    # (measured 2.2 GB transient on an 8 MB read chunk on the JAX
+    # package's development host, a CPU machine, not the H100's host);
+    # blocking caps the
     # transient at ~32 MB with identical fp operation order.
     maxlen = int(run_len.max())
     col = np.arange(N) - run_start[run_id]

@@ -243,7 +243,9 @@ class AggSpillCounter:
         # grow-vs-spill budget: the aggregator may grow (keeping dedup
         # state warm — a full-table flush resets it, and then EVERY later
         # chunk re-floods the table with "new" keys: measured 12.9 core-s
-        # of flushes on a 1 GiB run) until tables across the worker pool
+        # of flushes on a 1 GiB run on the JAX package's development
+        # host, a CPU machine, not the H100's host) until tables across
+        # the worker pool
         # would exceed ~1/4 of MemAvailable-at-start; past that it spills
         # under pressure exactly as before (bounded memory preserved).
         from kmernator_tpu_torch.utils.memory import available_mb
@@ -255,7 +257,8 @@ class AggSpillCounter:
         slot_b = 20 if track_weights else 16
         # hard cap 16M slots/worker (256 MB): beyond that the table blows
         # the dTLB and page-fault budget and inserts slow more than the
-        # saved flushes gain (measured: uncapped growth to 64M+ slots took
+        # saved flushes gain (measured on the same development host:
+        # uncapped growth to 64M+ slots took
         # the spill stage 18.7 -> 37.8 core-s on the 1 GiB run)
         self._max_slots = min(
             1 << 24,
@@ -349,7 +352,9 @@ class AggSpillCounter:
                 np.ascontiguousarray(gk[::step]), self.num_parts)
         if not track and self.agg.cap >= (1 << 23) \
                 and os.environ.get("KMTPU_BUCKETED", "0") == "1":
-            # MEASURED NEGATIVE at the app level, kept opt-in with the
+            # MEASURED NEGATIVE at the app level on the JAX package's
+            # development host (a CPU machine, not the H100's host),
+            # kept opt-in with the
             # numbers: isolated 4-way insert microbench +20% (18.3 vs
             # 14.9 M ins/s, 16M slots), but interleaved 1 GiB A/B runs
             # 18.9-23.6 s bucketed vs 16.2-17.3 s linear — the partition
@@ -425,7 +430,9 @@ def count_one_part(tmpdir: str, p: int, key_dt: np.dtype,
     `to_files=True` writes the part's (keys, counts[, weights]) to
     out%d.{k,c,w}.bin in tmpdir and returns the row count instead of the
     arrays — raw .tofile/.fromfile beats pickling ~100 MB of results
-    through the pool result pipe (which the parent deserializes serially)."""
+    through the pool result pipe (which the parent deserializes serially),
+    as measured on the JAX package's development host (a CPU machine, not
+    the H100's host)."""
     res = _count_one_part_arrays(tmpdir, p, key_dt, track_weights, min_depth)
     if not to_files:
         return res
@@ -509,7 +516,9 @@ def _count_one_part_arrays(tmpdir: str, p: int, key_dt: np.dtype,
         return None
     if w is None:
         # unweighted: grouping is all counting needs — the native
-        # hash-count + sorted-uniques path beats a full argsort ~5x
+        # hash-count + sorted-uniques path beats a full argsort ~5x (on
+        # the JAX package's development host, a CPU machine, not the
+        # H100's host)
         from kmernator_tpu_torch.io.native import spill_count, spill_count_agg
         if c_arr is not None:
             res = spill_count_agg(k_arr, c_arr, min_depth)

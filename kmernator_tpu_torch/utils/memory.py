@@ -53,7 +53,9 @@ def tune_malloc_for_streaming():
     glibc serves allocations above MMAP_THRESHOLD (128 KB default) with a
     fresh mmap and returns them with munmap, so churning chunk-sized numpy
     temporaries costs two syscalls + page faults each — measured ~40% of
-    streaming-FilterReads wall time in sys.  Raising the threshold and
+    streaming-FilterReads wall time in sys on the JAX package's
+    development host (a CPU machine, not the H100's host).  Raising the
+    threshold and
     disabling trim keeps pages resident for reuse (the reference gets the
     same effect from long-lived Boost pools, ref: src/MmapTempFile.h).
     Inherited by forked workers when called before the pool spawns."""
@@ -75,7 +77,9 @@ def fast_temp_dir(est_bytes: int, prefix: str = "kmtpu-") -> str:
     """mkdtemp on a RAM-backed filesystem when it clearly fits, else the
     default temp dir.  Spill buckets and scan caches are written once and
     read once — on tmpfs that's memcpy instead of disk writeback (measured
-    26% off a 1 GiB streaming pass-1) — matching the reference's default
+    26% off a 1 GiB streaming pass-1 on the JAX package's development
+    host, a CPU machine, not the H100's host) — matching the reference's
+    default
     of keeping spectra in RAM and spilling to disk only under pressure
     (ref: buildKmerSpectrumInParts is opt-in, src/KmerSpectrum.h:1818)."""
     import tempfile

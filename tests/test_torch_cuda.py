@@ -8,7 +8,9 @@ The CUDA results are held to the same function on CPU tensors, which takes
 the plain PyTorch versions. Tolerance: none for keys, counts, lookups and
 sorted lanes; table weights to 1e-6 of the total weight the table has
 taken in (both are differences of float32 prefix sums over a drain, which
-the card's scan rounds in another order than the CPU's).
+the card's scan rounds in another order than the CPU's). The hash insert
+places keys in an order that depends on timing, so it is held to its plain
+version through the order-free invariants of `check_invariants`, exactly.
 """
 import numpy as np
 import pytest
@@ -16,6 +18,7 @@ import torch
 
 from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE, encode_lane
 from kmernator_tpu_torch.parallel import device_spectrum as ds
+from kmernator_tpu_torch.parallel import hash_insert as hi
 from kmernator_tpu_torch.parallel import merge_sort as ms
 from kmernator_tpu_torch.parallel import run_length as rl
 from kmernator_tpu_torch.parallel.mesh import make_mesh
@@ -182,3 +185,42 @@ def test_count_batch_merge_sort_route(cuda_device, monkeypatch):
     assert ms.launches["merge_level"] > before["merge_level"]
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(hi.edge_cases()))
+def test_hash_insert_kernel_matches_plain(cuda_device, name):
+    keys, cap = hi.edge_cases()[name]
+    want = hi.hash_insert(torch.from_numpy(keys), cap)     # CPU: plain
+    before = hi.launches
+    got = hi.hash_insert(torch.from_numpy(keys).to(cuda_device), cap)
+    torch.cuda.synchronize()
+    assert hi.launches == before + 1
+    assert all(t.device.type == "cuda" and t.dtype == torch.int64
+               for t in got)
+    assert hi.check_invariants(keys, cap, *want) == 0
+    assert hi.check_invariants(keys, cap, *got) == 0
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[0].cpu() != hi.EMPTY, want[0] != hi.EMPTY)
+
+
+@pytest.mark.cuda
+def test_hash_insert_raises_on_the_card(cuda_device):
+    before = hi.launches
+    with pytest.raises(ValueError, match=r"10 keys .* cap = 8"):
+        hi.hash_insert(torch.arange(10, device=cuda_device), 8)
+    with pytest.raises(ValueError, match=r"\[0, 2\^32\)"):
+        hi.hash_insert(torch.tensor([1, -1, 1 << 32], device=cuda_device), 8)
+    assert hi.launches == before + 2
+    # the sentinel after a full table: counted, written nowhere
+    tk, tc, n = hi.hash_insert(torch.tensor([3, hi.EMPTY],
+                                            device=cuda_device), 1)
+    assert tk.tolist() == [3] and tc.tolist() == [1] and n.tolist() == [2]
+
+
+@pytest.mark.cuda
+def test_hash_bench_on_the_card(cuda_device):
+    before = hi.launches
+    r = hi.bench(device="cuda", steps=4)
+    assert hi.launches == before + 1 + 2 * 4
+    assert r["unique0"] > 0 and r["mkeys_per_s"] > 0
