@@ -16,17 +16,20 @@ started together) and drives the port's paths on the card:
      mesh) as the oracle;
   6. the merge-path sort kernels (local_sort_blocks, merge_level) against
      their plain versions, bit-equal, at the edge cases and at the main
-     path's shapes, with their times beside torch.sort's;
+     path's shapes, with their times beside torch.sort's, the local sort's
+     tile pass and in-block levels timed apart inside one call;
   7. count_batch on 131,072 reads of 100 bp at k=31 (9,175,040 windows):
      under KMTPU_MERGE_SORT=1 through the sort kernels and without it
      through torch.sort, bit-equal to each other and to a numpy
      np.unique oracle;
   8. the hash-insert kernel against its plain version through the
-     order-free invariants at its edge cases, its bench entry point
+     order-free invariants at its edge cases (and against np.unique at a
+     hot key and at load 0.9), its bench entry point
      (`kmernator_tpu_torch.parallel.hash_insert.main`) at the JAX bench's
      shape, and the canonical 16-mers of phase 7's reads (11,141,120
      keys) into 2^24 slots and into the smallest table at load <= 0.9,
-     against np.unique, beside torch.unique and count_batch at k=16.
+     against np.unique, beside torch.unique and count_batch at k=16, its
+     clear, insert and unpack launches timed apart.
 
 Inputs come from the port's own generator and from seeded numpy. Fails
 (non-zero exit, no result line) without a CUDA device, outside a
@@ -61,7 +64,14 @@ BLOCK, CHUNK = 1 << 17, 1 << 15       # merge_sort_2key's defaults
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 SOURCES = ("run_length", "merge_sort", "hash_insert")
 HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
-K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 256 MiB table
+K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
+# the earlier designs' times (bitonic local sort; hash with separate key and
+# count arrays), from this script on an NVIDIA H100 80GB HBM3 at 700.00 W:
+# printed on a line of their own, never in the kernels line, which holds
+# only this run's measurements
+PREV_MS = {"local_sort_blocks": {"count_9.2M": 2.0554, "drain_96M": 20.7070},
+           "hash_insert": {"hash_1024": 0.0306, "hash_11.1M": 2.1320,
+                           "hash_11.1M_high_load": 1.6747}}
 
 
 def log(msg: str) -> None:
@@ -334,10 +344,26 @@ def drain_lanes(gen: torch.Generator) -> torch.Tensor:
     return torch.cat([table, staged])
 
 
+def local_split_ms(ms, lanes, block: int, reps: int):
+    """Mean device ms of the tile pass and of the in-block merge levels of
+    one local_sort_blocks call, from CUDA events recorded between them,
+    after one warm-up left running, so that the first timed call does not
+    wait on an idle card for the host."""
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+           for _ in range(reps)]
+    torch.cuda.synchronize()
+    ms.local_sort_blocks(lanes, block)
+    for ev in evs:
+        ms.local_sort_blocks(lanes, block, events=ev)
+    torch.cuda.synchronize()
+    return [sum(ev[i].elapsed_time(ev[i + 1]) for ev in evs) / reps
+            for i in range(2)]
+
+
 def phase_sort(ms, count_path_lanes):
     """Sort kernels vs plain versions on the card, bit-equal, at the edge
-    cases of tests/test_pallas_sort.py and at the main path's shapes; device
-    times at the main path's shapes."""
+    cases of tests/test_pallas_sort.py, at those of the tile design and at
+    the main path's shapes; device times at the main path's shapes."""
     from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -363,7 +389,15 @@ def phase_sort(ms, count_path_lanes):
         ("random_full_width", torch.randint(
             -(1 << 63), (1 << 63) - 1, (9 * BLOCK + 123,), generator=gen,
             device="cuda"), BLOCK, CHUNK),
+        ("one_block", rand_lanes(BLOCK), BLOCK, CHUNK),
+        ("three_blocks", rand_lanes(3 * BLOCK), BLOCK, CHUNK),
+        ("ragged_sentinel_pad", dup_sentinels(3 * BLOCK - 777), BLOCK,
+         CHUNK),
     ]
+    tile = ms._kernel_lib().kmtpu_sort_tile()
+    edge += [("block_eq_tile", rand_lanes(3 * tile), tile, 1024),
+             ("block_2tile", dup_sentinels(5 * 2 * tile - 333), 2 * tile,
+              1024)]
     shapes = {"count_9.2M": count_path_lanes, "drain_96M": drain_lanes(gen)}
     max_err = 0.0
     for name, lanes, block, chunk in edge + [(n, x, BLOCK, CHUNK)
@@ -410,26 +444,24 @@ def phase_sort(ms, count_path_lanes):
         reps = 5 if name == "drain_96M" else 20
         # plain, kernel, kernel, plain: each the mean of its two turns
         t = {}
-        for key, fn, r in (
-                ("plain", lambda: ms.merge_sort_lanes_plain(lanes), 1),
-                ("kernel", lambda: ms.merge_sort_lanes(lanes), reps),
-                ("local", lambda: ms.local_sort_blocks(padded, BLOCK), reps),
-                ("levels", all_levels, reps),
-                ("torch_sort", lambda: torch.sort(lanes).values, reps),
-                ("torch_block_sort", lambda: torch.sort(
-                    padded.view(-1, BLOCK), dim=1).values, reps),
-                ("local_plain", lambda: ms.local_sort_blocks_plain(
-                    padded, BLOCK), reps),
-                ("levels_plain", all_levels_plain, 1)):
+        turn = [
+            ("plain", lambda: ms.merge_sort_lanes_plain(lanes), 1),
+            ("kernel", lambda: ms.merge_sort_lanes(lanes), reps),
+            ("local", lambda: ms.local_sort_blocks(padded, BLOCK), reps),
+            ("levels", all_levels, reps),
+            ("torch_sort", lambda: torch.sort(lanes).values, reps),
+            ("torch_block_sort", lambda: torch.sort(
+                padded.view(-1, BLOCK), dim=1).values, reps),
+            ("local_plain", lambda: ms.local_sort_blocks_plain(
+                padded, BLOCK), reps),
+            ("levels_plain", all_levels_plain, 1)]
+        for key, fn, r in turn + turn[::-1]:
             t.setdefault(key, []).append(cuda_ms(fn, r))
-        for key, fn, r in (
-                ("kernel", lambda: ms.merge_sort_lanes(lanes), reps),
-                ("plain", lambda: ms.merge_sort_lanes_plain(lanes), 1)):
-            t[key].append(cuda_ms(fn, r))
         times[name] = {k: sum(v) / len(v) for k, v in t.items()}
-        times[name].update(n=N, padded=Np, n_levels=levels,
-                           max_abs_err=max_err)
         tm = times[name]
+        tm["tile_pass"], tm["inblock_levels"] = local_split_ms(
+            ms, padded, BLOCK, reps)
+        tm.update(n=N, padded=Np, n_levels=levels, max_abs_err=max_err)
         log("sort %-10s N=%d: local %.4f ms (plain %.4f, torch.sort of "
             "blocks %.4f), %d merge levels %.4f ms (plain %.4f), whole "
             "merge sort %.4f ms (plain %.4f), torch.sort %.4f ms; bound "
@@ -438,6 +470,10 @@ def phase_sort(ms, count_path_lanes):
                tm["torch_block_sort"], levels, tm["levels"],
                tm["levels_plain"], tm["kernel"], tm["plain"],
                tm["torch_sort"], bytes_bound_ms(16 * Np)))
+        log("sort %-10s local sort timed apart: tile pass (tile %d) %.4f "
+            "ms, %d in-block levels %.4f ms"
+            % (name, tile, tm["tile_pass"], (BLOCK // tile).bit_length() - 1,
+               tm["inblock_levels"]))
     del shapes
     torch.cuda.empty_cache()
     return times
@@ -479,10 +515,14 @@ def phase_count(ms, rl, smi: str):
     if not all(torch.equal(a, b) for a, b in zip(mres, tres)):
         raise SystemExit("count_batch: the merge-sort route disagrees with "
                          "the torch.sort route")
-    if min(m_ms.values()) <= 0 or m_rl <= 0:
-        raise SystemExit("count_batch under KMTPU_MERGE_SORT=1 did not "
-                         "launch every kernel: %s, run_length %d"
-                         % (m_ms, m_rl))
+    # one local sort (its in-block levels inside it), then one merge
+    # level a doubling of the run across the 70 blocks
+    levels = (-(-N // BLOCK) - 1).bit_length()
+    if m_ms != {"local_sort_blocks": 1, "merge_level": levels} or m_rl <= 0:
+        raise SystemExit("count_batch under KMTPU_MERGE_SORT=1 launched %s "
+                         "and run_length %d, expected 1 local sort, %d "
+                         "merge levels and the run-length kernel"
+                         % (m_ms, m_rl, levels))
     if max(t_ms.values()) != 0 or t_rl <= 0:
         raise SystemExit("count_batch without KMTPU_MERGE_SORT launched %s, "
                          "run_length %d" % (t_ms, t_rl))
@@ -510,13 +550,29 @@ def phase_count(ms, rl, smi: str):
 
 
 def hash_bound_ms(n: int, cap: int) -> Tuple[float, float]:
-    """(bound, sector bound) of one insert of n int64 keys into cap int64
-    slot keys and counts. The bound counts each input byte read once and
-    each output byte written once: 8 B a key, 16 B a slot, 8 B n_unique.
-    The sector bound adds the two 32-byte sectors (one of the key array,
-    one of the count array) each insert must touch at its slot."""
+    """(bound, sector bound) of one insert of n int64 keys into cap slots
+    returned as int64 keys and counts. The bound counts each input byte
+    read once and each output byte written once: 8 B a key, 16 B a slot,
+    8 B n_unique. The sector bound adds what any table layout must move
+    at a data-dependent place: one 32-byte sector a key, the least an
+    insert into a table beyond the 50 MB L2 can touch."""
     nbytes = 8 * n + 16 * cap + 8
-    return bytes_bound_ms(nbytes), bytes_bound_ms(nbytes + 64 * n)
+    return bytes_bound_ms(nbytes), bytes_bound_ms(nbytes + 32 * n)
+
+
+def hash_split_ms(hi, keys, cap: int, reps: int):
+    """Mean device ms of the clear, insert and unpack launches of one
+    hash_insert, from CUDA events recorded between them, after one warm-up
+    left running (as in local_split_ms)."""
+    evs = [[torch.cuda.Event(enable_timing=True) for _ in range(4)]
+           for _ in range(reps)]
+    torch.cuda.synchronize()
+    hi.hash_insert_launch(keys, cap)
+    for ev in evs:
+        hi.hash_insert_launch(keys, cap, events=ev)
+    torch.cuda.synchronize()
+    return [sum(ev[i].elapsed_time(ev[i + 1]) for ev in evs) / reps
+            for i in range(3)]
 
 
 def phase_hash(hi, smi: str):
@@ -539,6 +595,12 @@ def phase_hash(hi, smi: str):
                              "on %s" % name)
         log("hash %-16s n=%-6d cap=%-6d n_unique %d, invariants hold"
             % (name, keys.size, cap, int(got[2][0])))
+    for name, (keys, cap) in hi.large_cases().items():
+        got = hi.hash_insert(torch.from_numpy(keys).cuda(), cap)
+        max_err = max(max_err, hi.check_invariants(keys, cap, *got))
+        log("hash %-16s n=%-7d cap=%-7d n_unique %d, invariants hold "
+            "against np.unique" % (name, keys.size, cap, int(got[2][0])))
+        del got
     try:
         hi.hash_insert(torch.arange(10, device="cuda"), 8)
     except ValueError as e:
@@ -550,8 +612,9 @@ def phase_hash(hi, smi: str):
     hi.launches = 0
     bench = hi.main(["--device", "cuda"])
     launches = hi.launches
-    if launches <= 0:
-        raise SystemExit("the hash bench never launched the hash kernel")
+    if launches != 1 + 2 * 50:
+        raise SystemExit("the hash bench launched the hash kernel %d times, "
+                         "expected 101" % launches)
 
     t = {}
     x = torch.from_numpy(np.random.default_rng(0).integers(
@@ -568,10 +631,12 @@ def phase_hash(hi, smi: str):
             ("plain", lambda: hi.hash_insert_plain(x, HASH_CAP), 3)):
         t.setdefault(key, []).append(cuda_ms(fn, reps))
     small = {k: sum(v) / len(v) for k, v in t.items()}
-    log("hash_1024: kernel %.4f ms, plain %.4f ms, torch.unique %.4f ms; "
-        "bound %.6f ms [%s]" % (small["kernel"], small["plain"],
-                                small["library"],
-                                hash_bound_ms(HASH_N, HASH_CAP)[0], smi))
+    small["split"] = hash_split_ms(hi, x, HASH_CAP, 200)
+    log("hash_1024: kernel %.4f ms (clear %.4f, insert %.4f, unpack %.4f "
+        "timed apart), plain %.4f ms, torch.unique %.4f ms; bound %.6f ms "
+        "[%s]" % ((small["kernel"],) + tuple(small["split"])
+                  + (small["plain"], small["library"],
+                     hash_bound_ms(HASH_N, HASH_CAP)[0], smi)))
 
     codes, lengths = count_codes()
     cols, _, valid = extract_canonical_cols(
@@ -610,7 +675,9 @@ def phase_hash(hi, smi: str):
             ("high_load", lambda: hi.hash_insert_launch(keys, cap_hl), 10)):
         t.setdefault(key, []).append(cuda_ms(fn, reps))
     real = {k: sum(v) / len(v) for k, v in t.items()}
-    real.update(n=N, distinct=distinct, cap_hl=cap_hl)
+    real.update(n=N, distinct=distinct, cap_hl=cap_hl,
+                split=hash_split_ms(hi, keys, K16_CAP, 10),
+                high_load_split=hash_split_ms(hi, keys, cap_hl, 10))
     bound, sector = hash_bound_ms(N, K16_CAP)
     log("hash_11.1M: %d keys, %d distinct, invariants hold at cap 2^24 and "
         "at cap %d (load %.3f); kernel %.4f ms (bound %.4f, sector bound "
@@ -619,6 +686,12 @@ def phase_hash(hi, smi: str):
         % (N, distinct, cap_hl, distinct / cap_hl, real["kernel"], bound,
            sector, distinct / cap_hl, real["high_load"], real["library"],
            real["count_batch"], smi))
+    for what, cap, split in (("cap 2^24", K16_CAP, real["split"]),
+                             ("cap %d" % cap_hl, cap_hl,
+                              real["high_load_split"])):
+        log("hash_11.1M %s timed apart: clear %.4f ms, insert %.4f ms, "
+            "unpack %.4f ms (sector bound %.4f ms)"
+            % ((what,) + tuple(split) + (hash_bound_ms(N, cap)[1],)))
     del keys, ones
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": max_err, "small": small,
@@ -701,6 +774,8 @@ def main() -> int:
     c = sort_times["count_9.2M"]
     d = sort_times["drain_96M"]
     r = hs["real"]
+    log("earlier designs (recorded, not run here): %s"
+        % json.dumps(PREV_MS))
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",
@@ -723,7 +798,12 @@ def main() -> int:
         "library_ms": c["torch_block_sort"],
         "torch_ms": c["torch_block_sort"],
         "shape": "count_9.2M: %d rows, block %d" % (c["padded"], BLOCK),
+        "tile": ms._kernel_lib().kmtpu_sort_tile(),
+        "tile_pass_ms": c["tile_pass"],
+        "inblock_levels_ms": c["inblock_levels"],
         "drain_ms": d["local"], "drain_plain_ms": d["local_plain"],
+        "drain_tile_pass_ms": d["tile_pass"],
+        "drain_inblock_levels_ms": d["inblock_levels"],
         "drain_bound_ms": bytes_bound_ms(16 * d["padded"]),
         "drain_library_ms": d["torch_block_sort"]}, {
         "name": "merge_level", "route": "cuda",
@@ -755,16 +835,25 @@ def main() -> int:
                    "(key, count) multiset and n_unique, but no table",
         "shape": "hash_1024: %d keys in [0, 2^16), cap %d (the bench)"
                  % (HASH_N, HASH_CAP),
+        "clear_ms": hs["small"]["split"][0],
+        "insert_ms": hs["small"]["split"][1],
+        "unpack_ms": hs["small"]["split"][2],
         "bench_mkeys_per_s": hs["bench"]["mkeys_per_s"],
         "k16_shape": "hash_11.1M: %d canonical 16-mers, %d distinct, cap "
                      "2^24" % (r["n"], r["distinct"]),
-        "k16_ms": r["kernel"],
+        "k16_ms": r["kernel"], "k16_clear_ms": r["split"][0],
+        "k16_insert_ms": r["split"][1], "k16_unpack_ms": r["split"][2],
         "k16_bound_ms": hash_bound_ms(r["n"], K16_CAP)[0],
         "k16_sector_bound_ms": hash_bound_ms(r["n"], K16_CAP)[1],
         "k16_library_ms": r["library"],
         "count_batch_k16_ms": r["count_batch"],
         "k16_high_load_cap": r["cap_hl"], "k16_high_load_ms": r["high_load"],
-        "k16_high_load_bound_ms": hash_bound_ms(r["n"], r["cap_hl"])[0]}]}))
+        "k16_high_load_clear_ms": r["high_load_split"][0],
+        "k16_high_load_insert_ms": r["high_load_split"][1],
+        "k16_high_load_unpack_ms": r["high_load_split"][2],
+        "k16_high_load_bound_ms": hash_bound_ms(r["n"], r["cap_hl"])[0],
+        "k16_high_load_sector_bound_ms": hash_bound_ms(r["n"],
+                                                       r["cap_hl"])[1]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -16,11 +16,16 @@ on FilterReads' path. Run its bench, the counterpart of the JAX module's:
     KMTPU_HASH_BENCH=1 python -m kmernator_tpu_torch.parallel.hash_insert \
         [--device cuda|cpu]
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-csrc/hash_insert.cu on the current stream, one thread a key with atomic
-compare-and-swap; on a CPU tensor it takes `hash_insert_plain`, a serial
-transcription of the JAX kernel, bit-equal to it in all three outputs.
-Nothing else chooses between them, and a failed build or launch raises.
+On a CUDA tensor the wrapper makes one call into csrc/hash_insert.cu,
+which launches three hand-written kernels on the current stream: a clear
+of the table, the insert (one thread a key; a slot is one 64-bit word, the
+key in the low half and the count in the high half, as `pack_slots` lays
+it out; a plain load, then one atomic where the load finds the key or an
+empty slot) and an unpack of the slots into the int64 outputs
+(`unpack_slots`). On a CPU
+tensor it takes `hash_insert_plain`, a serial transcription of the JAX
+kernel, bit-equal to it in all three outputs. Nothing else chooses between
+them, and a failed build or launch raises.
 
 Where the two differ from each other or from the JAX function:
 
@@ -44,6 +49,9 @@ Where the two differ from each other or from the JAX function:
 - **Arguments.** A `cap` that is not a power of two in [1, 2^32], keys
   outside [0, 2^32), and input that is not 1-D, int64 and contiguous raise
   ValueError or TypeError (the JAX function asserts on `cap`).
+- **At most 2^32 - 1 keys.** A packed slot's count has 32 bits, so both
+  versions raise ValueError for 2^32 keys or more. The JAX kernel's counts
+  are u32 too, and wrap there.
 """
 from __future__ import annotations
 
@@ -61,6 +69,8 @@ import torch
 EMPTY = 0xFFFFFFFF
 GOLDEN = 2654435761
 MAX_CAP = 1 << 32
+MAX_KEYS = 1 << 32    # a packed slot's count holds at most 2^32 - 1
+EMPTY_SLOT = EMPTY    # the packed empty slot: key 0xFFFFFFFF, count 0
 
 launches = 0          # kernel launches made by hash_insert on CUDA tensors
 
@@ -72,10 +82,8 @@ def _kernel_lib():
     if _lib is None:
         from kmernator_tpu_torch.kernels.build import load
         lib = load("hash_insert")
-        lib.kmtpu_hash_insert.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
+        P, I64 = ctypes.c_void_p, ctypes.c_int64
+        lib.kmtpu_hash_insert.argtypes = [P, I64, P, P, I64, P, P, P, P, P]
         lib.kmtpu_hash_insert.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -93,6 +101,9 @@ def _check_args(keys: torch.Tensor, cap: int) -> None:
                          % (tuple(keys.shape),))
     if not keys.is_contiguous():
         raise ValueError("hash_insert takes a contiguous key tensor")
+    if keys.numel() >= MAX_KEYS:
+        raise ValueError("hash_insert takes fewer than 2^32 keys (a slot's "
+                         "count is 32 bits), got %d" % keys.numel())
 
 
 def _overflow(n: int, cap: int) -> ValueError:
@@ -138,11 +149,14 @@ def hash_insert_plain(keys: torch.Tensor, cap: int):
             torch.tensor([n_new], dtype=torch.int64, device=dev))
 
 
-def hash_insert_launch(keys: torch.Tensor, cap: int):
-    """The kernel alone, on a CUDA tensor: (tk, tc, n_unique, status), with
-    nothing waited for. status [2] int32 is (overflow, a key out of range);
-    `raise_on_status` reads it. `hash_insert` is this plus that check; the
-    bench chains launches and checks once at the end."""
+def hash_insert_launch(keys: torch.Tensor, cap: int, events=None):
+    """The kernels alone, on a CUDA tensor: (tk, tc, n_unique, status),
+    with nothing waited for. status [2] int32 is (overflow, a key out of
+    range); `raise_on_status` reads it. `hash_insert` is this plus that
+    check; the bench chains launches and checks once at the end. `events`,
+    four CUDA events or None, are recorded before the clear, after it,
+    after the insert and after the unpack, to time the three apart; the
+    kernels' call records the middle two."""
     global launches
     _check_args(keys, cap)
     if keys.device.type != "cuda":
@@ -155,10 +169,20 @@ def hash_insert_launch(keys: torch.Tensor, cap: int):
     n = torch.empty(1, dtype=torch.int64, device=dev)
     status = torch.empty(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.kmtpu_hash_insert(keys.data_ptr(), keys.numel(),
-                                    tk.data_ptr(), tc.data_ptr(), cap,
-                                    n.data_ptr(), status.data_ptr(), stream)
+        stream = torch.cuda.current_stream(dev)
+        if events is not None:
+            # recording creates each event; the first is recorded last, so
+            # that no host work of the others lies inside the clear's time
+            for ev in events[::-1]:
+                ev.record(stream)
+        err = lib.kmtpu_hash_insert(
+            keys.data_ptr(), keys.numel(), tk.data_ptr(), tc.data_ptr(), cap,
+            n.data_ptr(), status.data_ptr(),
+            None if events is None else events[1].cuda_event,
+            None if events is None else events[2].cuda_event,
+            stream.cuda_stream)
+        if err == 0 and events is not None:
+            events[3].record(stream)
     if err != 0:
         raise RuntimeError("hash_insert kernel launch failed: CUDA error %d"
                            % err)
@@ -187,6 +211,19 @@ def hash_insert(keys: torch.Tensor, cap: int):
         raise_on_status(status, keys.numel(), cap)
         return tk, tc, n
     raise ValueError("hash_insert has no kernel for device %s" % keys.device)
+
+
+def pack_slots(tk: torch.Tensor, tc: torch.Tensor) -> torch.Tensor:
+    """The kernel's slot layout in plain PyTorch: int64 slot keys and
+    counts (counts < 2^31 here) -> one int64 word a slot, count << 32 |
+    key. An empty slot with count 0 is EMPTY_SLOT."""
+    return (tc << 32) | tk
+
+
+def unpack_slots(slots: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Packed slots -> (slot keys, slot counts), int64: what the kernel's
+    last launch does in place."""
+    return slots & EMPTY, (slots >> 32) & EMPTY
 
 
 def home_slots(keys: np.ndarray, cap: int) -> np.ndarray:
@@ -305,6 +342,23 @@ def edge_cases() -> Dict[str, Tuple[np.ndarray, int]]:
             for k, (v, c) in cases.items()}
 
 
+def large_cases() -> Dict[str, Tuple[np.ndarray, int]]:
+    """name -> (int64 keys, cap): the cases only the card runs, held to
+    np.unique through `check_invariants` (the plain version's Python loop
+    is too slow for them): one key 2^20 times, every thread on one slot's
+    count; and 2^23 keys filling 2^22 slots to load 0.9."""
+    rng = np.random.default_rng(4)
+    cap = 1 << 22
+    n_distinct = int(0.9 * cap)
+    distinct = np.unique(rng.integers(0, EMPTY, n_distinct + n_distinct // 8))
+    distinct = rng.permutation(distinct)[:n_distinct]
+    n = 1 << 23
+    load = rng.permutation(np.concatenate(
+        [distinct, distinct[rng.integers(0, n_distinct, n - n_distinct)]]))
+    return {"hot_key": (np.full(1 << 20, 2024, dtype=np.int64), 1 << 10),
+            "load_0.9_2^22": (load.astype(np.int64), cap)}
+
+
 def _card_label() -> str:
     """`name, power.limit` of the card as nvidia-smi gives them."""
     try:
@@ -323,9 +377,9 @@ def bench(n: int = 1 << 10, cap: int = 1 << 12, steps: int = 50,
     flips every other pass; the number of distinct keys stays), run once to
     warm and once timed; the two totals of n_unique must agree.
 
-    Timed region: the `steps` passes, each the allocation of its outputs and
-    one insert (clear and insert kernels on the card), plus adding n_unique
-    to a running total. On the card the passes are launched back to back
+    Timed region: the `steps` passes, each the allocation of its outputs
+    and one insert (clear, insert and unpack kernels on the card), plus
+    adding n_unique to a running total. On the card the passes are launched back to back
     between two CUDA events, with one synchronise after them; the overflow
     flags are checked after the timing. On the CPU, the host clock.
     """

@@ -23,6 +23,11 @@ On a CUDA tensor each wrapper launches its hand-written kernel in
 csrc/merge_sort.cu on the current stream and adds one to its count in
 `launches`; on a CPU tensor it takes the plain PyTorch version beside it.
 Nothing else chooses between them, and a failed build or launch raises.
+The local sort kernel sorts tiles in shared memory and merges them inside
+each block with the merge level's code; `launches["local_sort_blocks"]`
+counts those levels in its one call, and `launches["merge_level"]` only
+the levels across blocks. `local_sort_schedule_plain` is that schedule in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -52,7 +57,8 @@ def _kernel_lib():
             fn.restype = ctypes.c_int
         lib.kmtpu_local_sort_blocks.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p]
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p]
         lib.kmtpu_local_sort_blocks.restype = ctypes.c_int
         lib.kmtpu_merge_level.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -91,13 +97,47 @@ def local_sort_blocks_plain(lanes: torch.Tensor, block: int) -> torch.Tensor:
     return torch.sort(lanes.view(-1, block), dim=1).values.reshape(-1)
 
 
-def _local_sort_blocks_cuda(lanes: torch.Tensor, block: int) -> torch.Tensor:
+def local_sort_schedule_plain(lanes: torch.Tensor, block: int,
+                              tile: int) -> torch.Tensor:
+    """The kernel's schedule in plain PyTorch: sort tiles of
+    min(tile, block) keys, then merge runs pairwise (`merge_level_plain`)
+    until each run is a block. Every level's run pairs lie inside one block,
+    because block is a multiple of twice the run."""
+    t = min(tile, block)
+    s = torch.sort(lanes.view(-1, t), dim=1).values.reshape(-1)
+    run = t
+    while run < block:
+        s = merge_level_plain(s, [(i, run) for i in range(0, s.numel(), run)])
+        run *= 2
+    return s
+
+
+def _local_sort_blocks_cuda(lanes: torch.Tensor, block: int,
+                            events) -> torch.Tensor:
     lib = _kernel_lib()
+    N = lanes.numel()
     out = torch.empty_like(lanes)
+    scratch = splits = None
+    if block > lib.kmtpu_sort_tile():   # the in-block levels ping-pong here
+        scratch = torch.empty_like(lanes)
+        splits = torch.empty(N // lib.kmtpu_merge_tile() + 1,
+                             dtype=torch.int64, device=lanes.device)
     with torch.cuda.device(lanes.device):
-        err = lib.kmtpu_local_sort_blocks(lanes.data_ptr(), out.data_ptr(),
-                                          lanes.numel(), block,
-                                          _stream(lanes))
+        stream = torch.cuda.current_stream(lanes.device)
+        if events is not None:
+            # recording creates each event, the first last, right before
+            # the call; the call records the middle one again, between its
+            # tile pass and its levels
+            for ev in events[::-1]:
+                ev.record(stream)
+        err = lib.kmtpu_local_sort_blocks(
+            lanes.data_ptr(), out.data_ptr(), N, block,
+            None if scratch is None else scratch.data_ptr(),
+            None if splits is None else splits.data_ptr(),
+            None if events is None else events[1].cuda_event,
+            stream.cuda_stream)
+        if err == 0 and events is not None:
+            events[2].record(stream)
     if err != 0:
         raise RuntimeError("local_sort_blocks kernel launch failed: CUDA "
                            "error %d" % err)
@@ -105,20 +145,27 @@ def _local_sort_blocks_cuda(lanes: torch.Tensor, block: int) -> torch.Tensor:
     return out
 
 
-def local_sort_blocks(lanes: torch.Tensor, block: int) -> torch.Tensor:
+def local_sort_blocks(lanes: torch.Tensor, block: int,
+                      events=None) -> torch.Tensor:
     """Sort each aligned [block] slice of the lanes ascending. block is a
-    power of two and N % block == 0."""
+    power of two and N % block == 0. `events`, three CUDA events or None,
+    are recorded on a CUDA tensor's call before the kernel's tile pass,
+    after it and after its last in-block merge level, to time the two
+    apart."""
     _check_lanes(lanes, "local_sort_blocks")
     if not _is_pow2(block):
         raise ValueError("block must be a power of two, got %d" % block)
     if lanes.numel() % block:
         raise ValueError("N = %d is not a multiple of block = %d"
                          % (lanes.numel(), block))
+    if events is not None and len(events) != 3:
+        raise ValueError("events takes three CUDA events, got %d"
+                         % len(events))
     if lanes.device.type == "cpu":
         return local_sort_blocks_plain(lanes, block)
     if lanes.numel() == 0:
         return lanes.clone()        # nothing to sort: no launch
-    return _local_sort_blocks_cuda(lanes, block)
+    return _local_sort_blocks_cuda(lanes, block, events)
 
 
 # --------------------------------------------------------------------------

@@ -128,6 +128,11 @@ def _sort_case(name, n, rng):
     (4096 * 7 - 1000, 4096, 1024),  # sentinel padding, odd run counts
     (70 * 2048, 2048, 1024),
     (3 * (1 << 17) + 5, 1 << 17, 1 << 15),   # blocks above the CTA tile
+    (3 * 8192, 8192, 1024),        # block == the default tile
+    (2 * 16384 + 700, 16384, 1024),  # block == 2 tiles, ragged N
+    (3 * 32768 - 500, 32768, 1024),  # 2 levels inside each block
+    (1 << 17, 1 << 17, 1 << 15),   # one block of 2^17
+    (3 << 17, 1 << 17, 1 << 15),   # three blocks of 2^17
 ])
 @pytest.mark.parametrize("case", ["random", "dups_sentinels", "all_equal",
                                   "sign_bit"])
@@ -143,6 +148,28 @@ def test_merge_sort_kernels_match_plain(cuda_device, N, block, chunk, case):
     assert ms.launches["local_sort_blocks"] == before["local_sort_blocks"] + 1
     levels = max(-(-N // block) - 1, 0).bit_length()
     assert ms.launches["merge_level"] == before["merge_level"] + levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [1, 4, 16, 2048, 8192, 16384, 32768,
+                                   1 << 17])
+@pytest.mark.parametrize("case", ["dups_sentinels", "sign_bit"])
+@pytest.mark.parametrize("timed", [False, True])
+def test_local_sort_tiles_match_plain(cuda_device, block, case, timed):
+    """Blocks below, at and above the 16384-key tile: one launch each, the
+    in-block levels counted in it and not as merge levels, with and without
+    the events that time the tile pass and the levels apart."""
+    N = max(3 * block, 64)
+    lanes = torch.from_numpy(_sort_case(case, N, np.random.default_rng(N)))
+    want = ms.local_sort_blocks_plain(lanes, block)
+    events = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              if timed else None)
+    before = dict(ms.launches)
+    got = ms.local_sort_blocks(lanes.to(cuda_device), block, events=events)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert ms.launches == dict(before, local_sort_blocks=before[
+        "local_sort_blocks"] + 1)
 
 
 @pytest.mark.cuda
@@ -202,6 +229,18 @@ def test_hash_insert_kernel_matches_plain(cuda_device, name):
     assert hi.check_invariants(keys, cap, *got) == 0
     assert torch.equal(got[2].cpu(), want[2])
     assert torch.equal(got[0].cpu() != hi.EMPTY, want[0] != hi.EMPTY)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(hi.large_cases()))
+def test_hash_insert_large_cases(cuda_device, name):
+    """One key on every thread, and a table at load 0.9, through the
+    invariants."""
+    keys, cap = hi.large_cases()[name]
+    before = hi.launches
+    got = hi.hash_insert(torch.from_numpy(keys).to(cuda_device), cap)
+    assert hi.launches == before + 1
+    assert hi.check_invariants(keys, cap, *got) == 0
 
 
 @pytest.mark.cuda

@@ -178,6 +178,36 @@ def test_argument_checks_and_overflow():
     assert tk.tolist() == [3] and tc.tolist() == [1] and n.tolist() == [2]
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_packed_slots_hold_the_plain_tables(name):
+    """The kernel's slot layout, in plain PyTorch, round-trips the plain
+    version's outputs; an empty slot packs to EMPTY_SLOT where the JAX
+    sentinel quirk left no count in it."""
+    keys, cap = CASES[name]
+    tk, tc, _ = _plain(keys, cap)
+    slots = hi.pack_slots(tk, tc)
+    assert slots.dtype == torch.int64
+    back = hi.unpack_slots(slots)
+    assert torch.equal(back[0], tk) and torch.equal(back[1], tc)
+    assert torch.equal(slots & hi.EMPTY, tk)
+    empty = tk == hi.EMPTY
+    if not (keys == hi.EMPTY).any():
+        assert bool((slots[empty] == hi.EMPTY_SLOT).all())
+    assert torch.equal(slots[~empty] >> 32, tc[~empty])
+
+
+def test_key_limit_without_building_the_keys():
+    """2^32 keys or more raise before any work: a meta tensor has the
+    shape and no storage."""
+    many = torch.empty(hi.MAX_KEYS, dtype=torch.int64, device="meta")
+    for call in (hi.hash_insert, hi.hash_insert_plain, hi.hash_insert_launch):
+        with pytest.raises(ValueError, match=r"fewer than 2\^32 keys"):
+            call(many, 8)
+    # one key fewer passes the limit and stops at the device instead
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        hi.hash_insert(many[1:], 8)
+
+
 BENCH = r"""
 import runpy, sys
 sys.argv = ["hash_insert", "--device", "cpu"]

@@ -75,6 +75,24 @@ def test_local_sort_blocks_matches_jax():
     assert np.array_equal(got[1], np.asarray(jl).astype(np.int64))
 
 
+@pytest.mark.parametrize("tile", [1024, 2048])
+@pytest.mark.parametrize("blocks_of_tile", [1, 2, 8])
+def test_local_sort_schedule_matches_jax(tile, blocks_of_tile):
+    """The card's schedule (tile sorts, then merge levels inside each
+    block) in plain PyTorch, bit-equal to the JAX bitonic block sort and to
+    the plain version, at block = tile, 2 tile and 8 tile."""
+    block = tile * blocks_of_tile
+    hi, lo = _keys(2 * block, tile + blocks_of_tile)
+    jh, jl = J.local_sort_blocks(jnp.asarray(hi), jnp.asarray(lo), block,
+                                 interpret=True)
+    lanes = _lanes(hi, lo)
+    got = T.local_sort_schedule_plain(lanes, block, tile)
+    assert torch.equal(got, T.local_sort_blocks_plain(lanes, block))
+    words = _words(got)
+    assert np.array_equal(words[0], np.asarray(jh).astype(np.int64))
+    assert np.array_equal(words[1], np.asarray(jl).astype(np.int64))
+
+
 def test_merge_level_matches_jax():
     """Three sorted runs: the first two merge, the odd tail copies, and
     next_runs agree."""
@@ -99,6 +117,8 @@ def test_merge_level_matches_jax():
     (lambda s: T.merge_level(s, [(0, 4096), (6144, 2048)], 1024), "cover"),
     (lambda s: T.merge_level(s, [(0, 3072), (3072, 5120)], 2048), "cover"),
     (lambda s: T.local_sort_blocks(s.to(torch.int32), 4096), "int64"),
+    (lambda s: T.local_sort_blocks(s[::2], 2048), "contiguous"),
+    (lambda s: T.local_sort_blocks(s, 4096, events=[None]), "three"),
 ])
 def test_contracts_refused(call, match):
     s = torch.arange(8192, dtype=torch.int64)
