@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from csrc/ (one nvcc for each source, all
 started together) and drives the port's paths on the card:
 
   1. the card; 2. the build;
-  3. the run-length kernel against its plain PyTorch version, bit-equal;
+  3. the run-length kernel against its plain PyTorch version, bit-equal,
+     timed at the drain's, the count path's and a count batch's shapes,
+     beside torch.unique_consecutive (the nearest library scan);
   4. FilterReads `--streaming --mesh 1` through the port's CLI entry point
      (`kmernator_tpu_torch.apps.filter_reads.run`) on a ~256 MB FASTQ,
      whose table fills the 64M-row clamp, and
@@ -17,7 +19,12 @@ started together) and drives the port's paths on the card:
   6. the merge-path sort kernels (local_sort_blocks, merge_level) against
      their plain versions, bit-equal, at the edge cases and at the main
      path's shapes, with their times beside torch.sort's, the local sort's
-     tile pass and in-block levels timed apart inside one call;
+     tile pass and in-block levels timed apart inside one call, the merge
+     levels timed apart by events that the library's one call records
+     between them (queued back to back, and started on an idle card: the
+     difference is the time the card waits on the host), and
+     merge_sort_lanes and run_length_sums run under
+     torch.cuda.set_sync_debug_mode("error");
   7. count_batch on 131,072 reads of 100 bp at k=31 (9,175,040 windows):
      under KMTPU_MERGE_SORT=1 through the sort kernels and without it
      through torch.sort, bit-equal to each other and to a numpy
@@ -65,13 +72,22 @@ HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 SOURCES = ("run_length", "merge_sort", "hash_insert")
 HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
 K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
-# the earlier designs' times (bitonic local sort; hash with separate key and
-# count arrays), from this script on an NVIDIA H100 80GB HBM3 at 700.00 W:
-# printed on a line of their own, never in the kernels line, which holds
-# only this run's measurements
+# the earlier designs' times, from this script on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: the bitonic local sort, the hash with separate key and count
+# arrays, the two-launch run-length kernel (tile scan, then one carry-fix
+# block), and the merge levels of 1,024-row tiles behind a pair table
+# copied from pageable host memory a level, with the local sort's in-block
+# levels. Printed on a line of their own, never in the kernels line, which
+# holds only this run's measurements
 PREV_MS = {"local_sort_blocks": {"count_9.2M": 2.0554, "drain_96M": 20.7070},
            "hash_insert": {"hash_1024": 0.0306, "hash_11.1M": 2.1320,
-                           "hash_11.1M_high_load": 1.6747}}
+                           "hash_11.1M_high_load": 1.6747},
+           "run_length_sums (two launches)": {"drain_96M": 1.1291,
+                                      "count_batch_2048x120": 0.0342},
+           "merge_level (1,024-row tiles)": {"count_9.2M_7_levels": 0.8353,
+                                  "drain_96M_10_levels": 7.5329,
+                                  "count_9.2M_3_inblock_levels": 0.2338,
+                                  "drain_96M_inblock_levels": 1.8775}}
 
 
 def log(msg: str) -> None:
@@ -118,9 +134,10 @@ def sorted_lanes(n: int, n_keys: int, gen: torch.Generator,
     return torch.sort(lanes).values
 
 
-def phase_kernel(rl):
+def phase_kernel(rl, count_sorted):
     """Kernel vs plain version on the card: bit-equal at the main path's
-    shapes and at the edge cases; device times at the main path's shapes."""
+    shapes (count_sorted: the count path's sorted lanes) and at the edge
+    cases; device times at the main path's shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     cases = {}
@@ -147,32 +164,46 @@ def phase_kernel(rl):
     cases["sign_bit_keys"] = (torch.sort(torch.randint(
         -(1 << 62), 0, (300_001,), generator=gen, device="cuda") * 2).values,
         ones(300_001))
+    cases["count_9.2M"] = (count_sorted,
+                           torch.ones(count_sorted.numel(), dtype=torch.int32,
+                                      device="cuda"))
     max_err = 0
     for name, (lanes, vals) in cases.items():
-        got = rl.run_length_sums(lanes, vals)
         want = rl.run_length_sums_plain(lanes, vals)
+        got = rl.run_length_sums(lanes, vals)
         torch.cuda.synchronize()
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \
-            if lanes.numel() else 0
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                  .max()) if lanes.numel() else 0
         if not torch.equal(got, want):
             raise SystemExit("run_length kernel disagrees with its plain "
                              "version on %s (max abs err %d)" % (name, err))
         max_err = max(max_err, err)
         log("kernel %-22s n=%-10d bit-equal" % (name, lanes.numel()))
     times = {}
-    for name in ("drain_96M", "count_batch_2048x120"):
+    for name in ("drain_96M", "count_9.2M", "count_batch_2048x120"):
         lanes, vals = cases[name]
-        reps = 10 if name == "drain_96M" else 200
+        reps = {"drain_96M": 10, "count_9.2M": 50}.get(name, 200)
         # plain, kernel, kernel, plain: each the mean of its two turns
-        p1 = cuda_ms(lambda: rl.run_length_sums_plain(lanes, vals), reps)
-        k1 = cuda_ms(lambda: rl.run_length_sums(lanes, vals), reps)
-        k2 = cuda_ms(lambda: rl.run_length_sums(lanes, vals), reps)
-        p2 = cuda_ms(lambda: rl.run_length_sums_plain(lanes, vals), reps)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        gbs = 16 * lanes.numel() / (times[name][0] * 1e-3) / 1e9
-        log("kernel %-22s kernel %.4f ms, plain %.4f ms (%.0f GB/s at "
-            "16 B/row)" % (name, times[name][0], times[name][1], gbs))
-    del cases
+        turn = [("plain", lambda: rl.run_length_sums_plain(lanes, vals)),
+                ("kernel", lambda: rl.run_length_sums(lanes, vals))]
+        t = {}
+        for key, fn in turn + turn[::-1]:
+            t.setdefault(key, []).append(cuda_ms(fn, reps))
+        times[name] = {k: sum(v) / len(v) for k, v in t.items()}
+        tm = times[name]
+        log("kernel %-22s kernel %.4f ms (tile %d), plain %.4f ms, bound "
+            "%.4f ms (%.0f GB/s at 16 B/row)"
+            % (name, tm["kernel"], rl._kernel_lib().kmtpu_run_length_tile(),
+               tm["plain"], bytes_bound_ms(16 * lanes.numel()),
+               16 * lanes.numel() / (tm["kernel"] * 1e-3) / 1e9))
+    lanes = cases["drain_96M"][0]
+    times["unique_consecutive"] = sum(
+        cuda_ms(lambda: torch.unique_consecutive(lanes, return_counts=True),
+                10) for _ in range(2)) / 2
+    log("kernel drain_96M torch.unique_consecutive(return_counts=True) "
+        "%.4f ms (the nearest library scan: compacted runs, another "
+        "function, so no library_ms)" % times["unique_consecutive"])
+    del cases, lanes
     torch.cuda.empty_cache()
     return max_err, times
 
@@ -360,6 +391,27 @@ def local_split_ms(ms, lanes, block: int, reps: int):
             for i in range(2)]
 
 
+def level_gaps(ms, blocks, runs, levels: int, reps: int):
+    """Mean device ms between CUDA events that the library's call records
+    after each merge level: calls queued back to back, the host far ahead
+    (each level's own time), and calls each started on an idle card (the
+    same plus the time the card waits on the host)."""
+    def chain(sync: bool):
+        evs = [[torch.cuda.Event(enable_timing=True)
+                for _ in range(levels + 1)] for _ in range(reps)]
+        torch.cuda.synchronize()
+        for ev in evs:
+            if sync:
+                torch.cuda.synchronize()
+            ev[0].record()
+            ms._merge_levels_cuda(blocks, runs, levels, ev[1:])
+        torch.cuda.synchronize()
+        return [sum(ev[i].elapsed_time(ev[i + 1]) for ev in evs) / reps
+                for i in range(levels)]
+    chain(False)                                  # warm-up
+    return chain(False), chain(True)
+
+
 def phase_sort(ms, count_path_lanes):
     """Sort kernels vs plain versions on the card, bit-equal, at the edge
     cases of tests/test_pallas_sort.py, at those of the tile design and at
@@ -428,11 +480,10 @@ def phase_sort(ms, count_path_lanes):
         blocks = ms.local_sort_blocks(padded, BLOCK)
         runs = [(i * BLOCK, BLOCK) for i in range(Np // BLOCK)]
 
+        levels = max(len(runs) - 1, 0).bit_length()
+
         def all_levels():
-            s, r = blocks, runs
-            while len(r) > 1:
-                s, r = ms.merge_level(s, r, CHUNK)
-            return s
+            return ms.merge_levels(blocks, runs, CHUNK)[0]
 
         def all_levels_plain():
             s, r = blocks, runs
@@ -440,7 +491,9 @@ def phase_sort(ms, count_path_lanes):
                 s, r = ms.merge_level_plain(s, r), ms._pair_runs(r)[1]
             return s
 
-        levels = max(len(runs) - 1, 0).bit_length()
+        if not torch.equal(all_levels(), all_levels_plain()):
+            raise SystemExit("merge_levels disagrees with its plain version "
+                             "on %s" % name)
         reps = 5 if name == "drain_96M" else 20
         # plain, kernel, kernel, plain: each the mean of its two turns
         t = {}
@@ -461,6 +514,8 @@ def phase_sort(ms, count_path_lanes):
         tm = times[name]
         tm["tile_pass"], tm["inblock_levels"] = local_split_ms(
             ms, padded, BLOCK, reps)
+        tm["each_level"], tm["each_level_idle_start"] = level_gaps(
+            ms, blocks, runs, levels, reps)
         tm.update(n=N, padded=Np, n_levels=levels, max_abs_err=max_err)
         log("sort %-10s N=%d: local %.4f ms (plain %.4f, torch.sort of "
             "blocks %.4f), %d merge levels %.4f ms (plain %.4f), whole "
@@ -470,6 +525,14 @@ def phase_sort(ms, count_path_lanes):
                tm["torch_block_sort"], levels, tm["levels"],
                tm["levels_plain"], tm["kernel"], tm["plain"],
                tm["torch_sort"], bytes_bound_ms(16 * Np)))
+        busy = sum(tm["each_level"])
+        cold = sum(tm["each_level_idle_start"])
+        log("sort %-10s between the events after each level, calls queued "
+            "back to back %s = %.4f ms; each call started on an idle card "
+            "%s = %.4f ms: the card waits %.4f ms on the host in a call"
+            % (name, ["%.4f" % x for x in tm["each_level"]], busy,
+               ["%.4f" % x for x in tm["each_level_idle_start"]], cold,
+               cold - busy))
         log("sort %-10s local sort timed apart: tile pass (tile %d) %.4f "
             "ms, %d in-block levels %.4f ms"
             % (name, tile, tm["tile_pass"], (BLOCK // tile).bit_length() - 1,
@@ -477,6 +540,27 @@ def phase_sort(ms, count_path_lanes):
     del shapes
     torch.cuda.empty_cache()
     return times
+
+
+def no_host_sync(ms, rl, lanes) -> None:
+    """merge_sort_lanes and run_length_sums on the count path's lanes under
+    torch.cuda.set_sync_debug_mode("error"): any call that makes the host
+    wait for the card raises."""
+    ones = torch.ones(lanes.numel(), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = ms.merge_sort_lanes(lanes)
+        out = rl.run_length_sums(s, ones)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if not (torch.equal(s, torch.sort(lanes).values)
+            and torch.equal(out, rl.run_length_sums_plain(s, ones))):
+        raise SystemExit("the sync-debug run disagrees with the plain "
+                         "versions")
+    log("sync check: merge_sort_lanes and run_length_sums on %d lanes ran "
+        "under torch.cuda.set_sync_debug_mode('error') without a host sync"
+        % lanes.numel())
 
 
 def phase_count(ms, rl, smi: str):
@@ -729,7 +813,10 @@ def main() -> int:
     build_host_libraries()
 
     t0 = time.perf_counter()
-    max_err, times = phase_kernel(rl)
+    codes, lengths = count_codes()
+    count_path_lanes = count_lanes(codes, lengths)[2]
+    del codes, lengths
+    max_err, times = phase_kernel(rl, torch.sort(count_path_lanes).values)
     log("phase 3 kernel vs plain: bit-equal [%.1f s]"
         % (time.perf_counter() - t0))
 
@@ -749,9 +836,9 @@ def main() -> int:
     log("phase 5 in-memory slice ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    codes, lengths = count_codes()
-    sort_times = phase_sort(ms, count_lanes(codes, lengths)[2])
-    del codes, lengths
+    sort_times = phase_sort(ms, count_path_lanes)
+    no_host_sync(ms, rl, count_path_lanes)
+    del count_path_lanes
     log("phase 6 sort kernels vs plain: bit-equal [%.1f s]"
         % (time.perf_counter() - t0))
 
@@ -770,7 +857,7 @@ def main() -> int:
     if loaded:
         raise SystemExit("jax or the JAX package was imported: %s" % loaded)
 
-    k_ms, p_ms = times["drain_96M"]
+    rt = times["drain_96M"]
     c = sort_times["count_9.2M"]
     d = sort_times["drain_96M"]
     r = hs["real"]
@@ -782,12 +869,18 @@ def main() -> int:
         "source": "kmernator_tpu_torch/csrc/run_length.cu",
         "replaces": "kmernator_tpu/parallel/pallas_count.py:159",
         "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
+        "ms": rt["kernel"], "plain_ms": rt["plain"],
         "bound_ms": bytes_bound_ms(16 * DRAIN_ROWS), "bound_by": "bytes",
         "library_ms": None,
         "shape": "drain %d rows" % DRAIN_ROWS,
-        "batch_ms": times["count_batch_2048x120"][0],
-        "batch_plain_ms": times["count_batch_2048x120"][1]}, {
+        "tile": rl._kernel_lib().kmtpu_run_length_tile(),
+        "unique_consecutive_ms": times["unique_consecutive"],
+        "count_ms": times["count_9.2M"]["kernel"],
+        "count_plain_ms": times["count_9.2M"]["plain"],
+        "count_bound_ms": bytes_bound_ms(16 * COUNT_ROWS),
+        "batch_ms": times["count_batch_2048x120"]["kernel"],
+        "batch_plain_ms": times["count_batch_2048x120"]["plain"],
+        "batch_bound_ms": bytes_bound_ms(16 * BATCH_ROWS)}, {
         "name": "local_sort_blocks", "route": "cuda",
         "source": "kmernator_tpu_torch/csrc/merge_sort.cu",
         "replaces": "kmernator_tpu/parallel/pallas_sort.py:360",
@@ -819,7 +912,13 @@ def main() -> int:
         "merge_sort_ms": c["kernel"], "merge_sort_plain_ms": c["plain"],
         "merge_sort_bound_ms": bytes_bound_ms(16 * c["n"]),
         "torch_sort_ms": c["torch_sort"],
+        "tile": ms._kernel_lib().kmtpu_merge_tile(),
+        "each_level_ms": c["each_level"],
+        "each_level_idle_start_ms": c["each_level_idle_start"],
         "drain_ms": d["levels"], "drain_levels": d["n_levels"],
+        "drain_bound_ms": bytes_bound_ms(16 * d["padded"] * d["n_levels"]),
+        "drain_each_level_ms": d["each_level"],
+        "drain_each_level_idle_start_ms": d["each_level_idle_start"],
         "drain_merge_sort_ms": d["kernel"],
         "drain_torch_sort_ms": d["torch_sort"],
         "count_batch_merge_ms": count["merge_ms"],

@@ -8,6 +8,8 @@ Counterpart of kmernator_tpu/parallel/pallas_sort.py, with its contracts:
   an odd tail run copying through, and returns (lanes, next_runs). `runs`
   is [(offset, length), ...] covering [0, N) in order; `chunk` is a power
   of two >= 1024 that divides N and every run length;
+- `merge_levels(lanes, runs, chunk)` runs merge levels until one run is
+  left;
 - `merge_sort_lanes(lanes, block, chunk)` pads N with the sentinel to a
   multiple of `block`, sorts the blocks, merges level by level until one
   run is left and slices [:N] back; `merge_sort_2key(hi, lo, block, chunk)`
@@ -27,7 +29,11 @@ The local sort kernel sorts tiles in shared memory and merges them inside
 each block with the merge level's code; `launches["local_sort_blocks"]`
 counts those levels in its one call, and `launches["merge_level"]` only
 the levels across blocks. `local_sort_schedule_plain` is that schedule in
-plain PyTorch.
+plain PyTorch. On the card `merge_levels` hands every level to the library
+in one call, with all their pair tables in one asynchronous copy from
+pinned memory, so the host never waits for the card between levels; each
+level still counts one merge level. `merge_level_schedule_plain` is the
+merge kernel's tiling (`pair_table`) in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -52,25 +58,22 @@ def _kernel_lib():
     if _lib is None:
         from kmernator_tpu_torch.kernels.build import load
         lib = load("merge_sort")
-        for fn in (lib.kmtpu_merge_tile, lib.kmtpu_sort_tile):
-            fn.argtypes = []
-            fn.restype = ctypes.c_int
+        lib.kmtpu_sort_tile.argtypes = []
+        lib.kmtpu_sort_tile.restype = ctypes.c_int
+        lib.kmtpu_merge_tile.argtypes = []
+        lib.kmtpu_merge_tile.restype = ctypes.c_int
         lib.kmtpu_local_sort_blocks.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p]
-        lib.kmtpu_local_sort_blocks.restype = ctypes.c_int
-        lib.kmtpu_merge_level.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
             ctypes.c_void_p]
-        lib.kmtpu_merge_level.restype = ctypes.c_int
+        lib.kmtpu_local_sort_blocks.restype = ctypes.c_int
+        lib.kmtpu_merge_levels.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+        lib.kmtpu_merge_levels.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _is_pow2(x: int) -> bool:
@@ -117,11 +120,9 @@ def _local_sort_blocks_cuda(lanes: torch.Tensor, block: int,
     lib = _kernel_lib()
     N = lanes.numel()
     out = torch.empty_like(lanes)
-    scratch = splits = None
-    if block > lib.kmtpu_sort_tile():   # the in-block levels ping-pong here
-        scratch = torch.empty_like(lanes)
-        splits = torch.empty(N // lib.kmtpu_merge_tile() + 1,
-                             dtype=torch.int64, device=lanes.device)
+    # the in-block levels ping-pong through a scratch
+    scratch = (torch.empty_like(lanes) if block > lib.kmtpu_sort_tile()
+               else None)
     with torch.cuda.device(lanes.device):
         stream = torch.cuda.current_stream(lanes.device)
         if events is not None:
@@ -133,7 +134,6 @@ def _local_sort_blocks_cuda(lanes: torch.Tensor, block: int,
         err = lib.kmtpu_local_sort_blocks(
             lanes.data_ptr(), out.data_ptr(), N, block,
             None if scratch is None else scratch.data_ptr(),
-            None if splits is None else splits.data_ptr(),
             None if events is None else events[1].cuda_event,
             stream.cuda_stream)
         if err == 0 and events is not None:
@@ -223,24 +223,92 @@ def merge_level_plain(lanes: torch.Tensor, runs: Runs) -> torch.Tensor:
     return out
 
 
-def _merge_level_cuda(lanes: torch.Tensor, runs: Runs) -> torch.Tensor:
+def pair_table(runs: Runs, tile: int) -> Tuple[List[Tuple[int, int, int,
+                                                            int]], int]:
+    """The merge kernel's pair table: one row (a0, alen, blen, tile0) a run
+    pair, tile0 the pair's first output tile of `tile` rows, tiles counted
+    pair by pair so that none straddles two pairs; and the tile count."""
+    rows = []
+    ntiles = 0
+    for a0, alen, _, blen in _pair_runs(runs)[0]:
+        rows.append((a0, alen, blen, ntiles))
+        ntiles += -(-(alen + blen) // tile)
+    return rows, ntiles
+
+
+def merge_level_schedule_plain(lanes: torch.Tensor, runs: Runs,
+                               tile: int) -> torch.Tensor:
+    """The merge kernel's schedule in plain PyTorch: for each output tile of
+    the pair table, its first and last split (rows of A before them, ties
+    A-first), then the merge of the two windows in between. A pair's last
+    tile may be short."""
+    out = torch.empty_like(lanes)
+    table, ntiles = pair_table(runs, tile)
+    starts = [row[3] for row in table]
+
+    def split(a, b, d):       # least i with a[i] > b[d - i - 1]
+        lo, hi = max(0, d - b.numel()), min(d, a.numel())
+        while lo < hi:
+            m = (lo + hi) // 2
+            if a[m] <= b[d - m - 1]:
+                lo = m + 1
+            else:
+                hi = m
+        return lo
+
+    for t in range(ntiles):
+        p = max(i for i, t0 in enumerate(starts) if t0 <= t)
+        a0, alen, blen, t0 = table[p]
+        a, b = lanes[a0:a0 + alen], lanes[a0 + alen:a0 + alen + blen]
+        dl = (t - t0) * tile
+        rows = min(tile, alen + blen - dl)
+        a_lo = split(a, b, dl)
+        a_hi = split(a, b, dl + rows)
+        # equal keys are equal lanes, so any sort of the windows is the merge
+        out[a0 + dl:a0 + dl + rows] = torch.sort(torch.cat(
+            [a[a_lo:a_hi], b[dl - a_lo:dl + rows - a_hi]])).values
+    return out
+
+
+def _merge_levels_cuda(lanes: torch.Tensor, runs: Runs, nlevels: int,
+                       events=None) -> Tuple[torch.Tensor, Runs]:
+    """`nlevels` merge levels in one call into the library, which launches
+    them one after another: (lanes, the runs left). `events`, nlevels CUDA
+    events or None, are recorded after each level. The levels' pair tables
+    go from pinned host memory to the card by one asynchronous copy: the
+    host never waits for the stream, and PyTorch's pinned allocator keeps
+    the buffer until the copy has run."""
     lib = _kernel_lib()
     N = lanes.numel()
-    pairs = torch.tensor([(a0, alen, blen) for a0, alen, _, blen
-                          in _pair_runs(runs)[0]], dtype=torch.int64,
-                         device=lanes.device)
+    tile = lib.kmtpu_merge_tile()
+    rows, levels = [], []
+    for _ in range(nlevels):
+        table, ntiles = pair_table(runs, tile)
+        levels += [len(rows), len(table), ntiles]
+        rows += table
+        runs = _pair_runs(runs)[1]
+    tables = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+        lanes.device, non_blocking=True)
     out = torch.empty_like(lanes)
-    splits = torch.empty(N // lib.kmtpu_merge_tile() + 1, dtype=torch.int64,
-                         device=lanes.device)
+    scratch = torch.empty_like(lanes) if nlevels > 1 else None
+    evs = None
     with torch.cuda.device(lanes.device):
-        err = lib.kmtpu_merge_level(lanes.data_ptr(), out.data_ptr(), N,
-                                    pairs.data_ptr(), pairs.shape[0],
-                                    splits.data_ptr(), _stream(lanes))
+        stream = torch.cuda.current_stream(lanes.device)
+        if events is not None:
+            for ev in events:       # recording creates each event
+                ev.record(stream)
+            evs = (ctypes.c_void_p * nlevels)(*[ev.cuda_event
+                                                for ev in events])
+        err = lib.kmtpu_merge_levels(
+            lanes.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), N,
+            tables.data_ptr(), (ctypes.c_int64 * len(levels))(*levels),
+            nlevels, evs, stream.cuda_stream)
     if err != 0:
         raise RuntimeError("merge_level kernel launch failed: CUDA error %d"
                            % err)
-    launches["merge_level"] += 1
-    return out
+    launches["merge_level"] += nlevels
+    return out, runs
 
 
 def merge_level(lanes: torch.Tensor, runs: Sequence[Tuple[int, int]],
@@ -255,7 +323,29 @@ def merge_level(lanes: torch.Tensor, runs: Sequence[Tuple[int, int]],
         return merge_level_plain(lanes, runs), next_runs
     if lanes.numel() == 0:
         return lanes.clone(), next_runs   # no runs to merge: no launch
-    return _merge_level_cuda(lanes, runs), next_runs
+    return _merge_levels_cuda(lanes, runs, 1)
+
+
+def merge_levels(lanes: torch.Tensor, runs: Sequence[Tuple[int, int]],
+                 chunk: int) -> Tuple[torch.Tensor, Runs]:
+    """Merge levels until one run is left: (lanes, [(0, N)]). On a CUDA
+    tensor all levels go to the library in one call, so the host queues
+    them without waiting between levels; each counts one in
+    launches["merge_level"]."""
+    _check_lanes(lanes, "merge_levels")
+    runs = [(int(o), int(n)) for o, n in runs]
+    _check_runs(lanes.numel(), runs, chunk)
+    nlevels = max(len(runs) - 1, 0).bit_length()
+    if lanes.device.type == "cpu" or nlevels == 0:
+        return _merge_levels_plain(lanes, runs)
+    return _merge_levels_cuda(lanes, runs, nlevels)
+
+
+def _merge_levels_plain(lanes: torch.Tensor, runs: Runs
+                        ) -> Tuple[torch.Tensor, Runs]:
+    while len(runs) > 1:
+        lanes, runs = merge_level_plain(lanes, runs), _pair_runs(runs)[1]
+    return lanes, runs
 
 
 # --------------------------------------------------------------------------
@@ -273,7 +363,7 @@ def pad_to_block(lanes: torch.Tensor, block: int) -> torch.Tensor:
 
 
 def _merge_sort(lanes: torch.Tensor, block: int, chunk: int, local,
-                level) -> torch.Tensor:
+                levels) -> torch.Tensor:
     _check_lanes(lanes, "merge_sort_lanes")
     if not (_is_pow2(block) and _is_pow2(chunk) and block % chunk == 0):
         raise ValueError("block and chunk must be powers of two with chunk "
@@ -282,9 +372,7 @@ def _merge_sort(lanes: torch.Tensor, block: int, chunk: int, local,
     lanes = pad_to_block(lanes, block)
     s = local(lanes, block)
     runs = [(i * block, block) for i in range(lanes.numel() // block)]
-    while len(runs) > 1:
-        s, runs = level(s, runs)
-    return s[:N]
+    return levels(s, runs, chunk)[0][:N]
 
 
 def merge_sort_lanes(lanes: torch.Tensor, block: int = 1 << 17,
@@ -292,18 +380,17 @@ def merge_sort_lanes(lanes: torch.Tensor, block: int = 1 << 17,
     """Ascending sort of int64 lanes: block sorts, then merge levels. N is
     padded with the sentinel to a multiple of `block` and sliced back (the
     sentinel sorts last, so the padded sort's prefix is the sort)."""
-    return _merge_sort(lanes, block, chunk, local_sort_blocks,
-                       lambda s, runs: merge_level(s, runs, chunk))
+    return _merge_sort(lanes, block, chunk, local_sort_blocks, merge_levels)
 
 
 def merge_sort_lanes_plain(lanes: torch.Tensor, block: int = 1 << 17,
                            chunk: int = 1 << 15) -> torch.Tensor:
     """merge_sort_lanes through the plain versions on any device: what the
     kernels are held to on the card."""
-    def level(s, runs):
+    def levels(s, runs, chunk):
         _check_runs(s.numel(), runs, chunk)
-        return merge_level_plain(s, runs), _pair_runs(runs)[1]
-    return _merge_sort(lanes, block, chunk, local_sort_blocks_plain, level)
+        return _merge_levels_plain(s, runs)
+    return _merge_sort(lanes, block, chunk, local_sort_blocks_plain, levels)
 
 
 def merge_sort_2key(hi: torch.Tensor, lo: torch.Tensor, block: int = 1 << 17,

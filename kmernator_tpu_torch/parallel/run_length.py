@@ -10,7 +10,9 @@ of equal keys, written at the run's LAST element, 0 elsewhere.
 On a CUDA tensor the wrapper launches the hand-written kernel in
 csrc/run_length.cu on the current stream; on a CPU tensor it takes the
 plain PyTorch version beside it. Nothing else chooses between them, and a
-failed build or launch raises.
+failed build or launch raises. The kernel is one launch, a scan with
+decoupled look-back; `run_length_schedule_plain` is its tiling and carry in
+plain PyTorch.
 """
 from __future__ import annotations
 
@@ -56,15 +58,51 @@ def run_length_sums_plain(lanes: torch.Tensor,
     return out
 
 
+def run_length_schedule_plain(lanes: torch.Tensor, vals: torch.Tensor,
+                              tile: int) -> torch.Tensor:
+    """The kernel's schedule in plain PyTorch: tiles of `tile` rows, each
+    scanned on its own into run-end partial sums and an aggregate (did a
+    run start in the tile, the sum since its last start), then the carry
+    into each tile found by looking back over its predecessors' aggregates
+    until one holds a run start. Sums wrap at 32 bits as the kernel's do."""
+    n = lanes.numel()
+    out = torch.zeros(n, dtype=torch.int32, device=lanes.device)
+    if n == 0:
+        return out
+    start = torch.ones(n, dtype=torch.bool, device=lanes.device)
+    start[1:] = lanes[1:] != lanes[:-1]
+    end = torch.ones(n, dtype=torch.bool, device=lanes.device)
+    end[:-1] = start[1:]
+    aggs = []                            # (flag, sum) of each tile
+    for t0 in range(0, n, tile):
+        s, e = start[t0:t0 + tile], end[t0:t0 + tile]
+        x = vals[t0:t0 + tile].to(torch.int64)
+        idx = torch.arange(s.numel(), device=lanes.device)
+        last = torch.cummax(torch.where(s, idx, -1), 0).values
+        cum = torch.cumsum(x, 0)
+        before = torch.where(last >= 0, (cum - x)[last.clamp(min=0)], 0)
+        part = cum - before              # sum since the last start in the tile
+        carry = 0                        # the look-back
+        for flag, total in reversed(aggs):
+            carry += total
+            if flag:
+                break
+        aggs.append((bool(s.any()), int(part[-1])))
+        part = torch.where(last >= 0, part, part + carry)
+        wrapped = (part + (1 << 31)) % (1 << 32) - (1 << 31)
+        out[t0:t0 + tile] = torch.where(e, wrapped, 0).to(torch.int32)
+    return out
+
+
 def _run_length_sums_cuda(lanes: torch.Tensor,
                           vals: torch.Tensor) -> torch.Tensor:
     global launches
     lib = _kernel_lib()
     n = lanes.numel()
     out = torch.empty(n, dtype=torch.int32, device=lanes.device)
-    tile = lib.kmtpu_run_length_tile()
-    scratch = torch.empty(3 * max(-(-n // tile), 1), dtype=torch.int32,
-                          device=lanes.device)
+    # the tile counter and one descriptor a tile, zeroed by the entry point
+    scratch = torch.empty(1 + -(-n // lib.kmtpu_run_length_tile()),
+                          dtype=torch.int64, device=lanes.device)
     with torch.cuda.device(lanes.device):
         stream = torch.cuda.current_stream(lanes.device).cuda_stream
         err = lib.kmtpu_run_length_sums(lanes.data_ptr(), vals.data_ptr(),

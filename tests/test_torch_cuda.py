@@ -32,10 +32,18 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _rl_tile():
+    return rl._kernel_lib().kmtpu_run_length_tile()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [0, 1, 2047, 2048, 2049, 3 * 2048 + 5,
-                               1 << 20])
-def test_kernel_matches_plain(cuda_device, N):
+@pytest.mark.parametrize("size", [lambda t: 0, lambda t: 1,
+                                  lambda t: t - 1, lambda t: t,
+                                  lambda t: t + 1, lambda t: 3 * t + 5,
+                                  lambda t: 1 << 20])
+def test_kernel_matches_plain(cuda_device, size):
+    """Lengths around the kernel's tile."""
+    N = size(_rl_tile())
     rng = np.random.default_rng(N)
     keys = np.sort(rng.integers(0, max(N // 3, 1), N)).astype(np.int64)
     lanes = encode_lane([torch.from_numpy(keys >> 32),
@@ -51,11 +59,61 @@ def test_kernel_matches_plain(cuda_device, N):
 
 @pytest.mark.cuda
 def test_one_run_across_every_tile(cuda_device):
-    n = 40 * 2048 + 17
+    n = 40 * _rl_tile() + 17
     lanes = torch.full((n,), 7, dtype=torch.int64, device=cuda_device)
     vals = torch.ones(n, dtype=torch.int32, device=cuda_device)
     got = rl.run_length_sums(lanes, vals).cpu()
     assert int(got[-1]) == n and int(got[:-1].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["runs", "giant_run", "misaligned"])
+def test_run_length_grid_beyond_resident_ctas(cuda_device, case):
+    """Thousands of tiles more than the card holds at once, so tiles wait
+    on tiles of CTAs that started long before them; runs ending on a
+    tile's first and last rows; a view 8 bytes off a 16-byte boundary
+    (the scalar load path)."""
+    tile = _rl_tile()
+    n = 5000 * tile + 3
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(8)
+    if case == "giant_run":
+        lanes = torch.full((n,), SENTINEL_LANE, dtype=torch.int64,
+                           device=cuda_device)
+        lanes[:tile + 1] = -9
+    else:
+        lanes = torch.sort(torch.randint(0, n // 50, (n,), generator=gen,
+                                         device=cuda_device)).values
+        lanes[tile - 1] = lanes[tile - 2]       # a run ends on a last row
+        lanes[tile:2 * tile] = lanes[tile]      # and one on a first row
+        lanes[2 * tile] = lanes[2 * tile - 1] + 1
+        lanes = torch.sort(lanes).values
+    vals = torch.randint(0, 7, (n,), generator=gen, device=cuda_device,
+                         dtype=torch.int32)
+    if case == "misaligned":
+        lanes, vals = lanes[1:], vals[1:]
+    got = rl.run_length_sums(lanes, vals)
+    assert torch.equal(got, rl.run_length_sums_plain(lanes, vals))
+
+
+@pytest.mark.cuda
+def test_no_host_sync_on_the_main_path(cuda_device):
+    """merge_sort_lanes (3 merge levels across blocks) and run_length_sums
+    never make the host wait for the card."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(1)
+    lanes = torch.randint(-(1 << 62), 1 << 62, (5 * (1 << 17) + 3,),
+                          generator=gen, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        s = ms.merge_sort_lanes(lanes)
+        out = rl.run_length_sums(s, torch.ones_like(s, dtype=torch.int32))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(s, torch.sort(lanes).values)
+    assert torch.equal(out, rl.run_length_sums_plain(
+        s, torch.ones_like(s, dtype=torch.int32)))
 
 
 @pytest.mark.cuda
@@ -183,15 +241,44 @@ def test_merge_sort_empty_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_merge_level_kernel_matches_plain(cuda_device):
-    rng = np.random.default_rng(3)
-    lanes = torch.from_numpy(_sort_case("dups_sentinels", 5 * 3072, rng))
-    runs = [(i * 3072, 3072) for i in range(5)]
-    s = lanes.view(5, 3072).sort(dim=1).values.reshape(-1)
-    want, want_runs = ms.merge_level(s, runs, 1024)
-    got, got_runs = ms.merge_level(s.to(cuda_device), runs, 1024)
-    assert got_runs == want_runs == [(0, 6144), (6144, 6144), (12288, 3072)]
+@pytest.mark.parametrize("timed", [False, True])
+@pytest.mark.parametrize("lengths", [
+    [3072] * 5,
+    [3072, 1024, 2048],                 # non-uniform runs
+    [3072, 2048, 1024],                 # short last tiles in both pairs
+    [5120, 17408, 1024, 9216, 31744, 4096, 13312],
+])
+@pytest.mark.parametrize("case", ["dups_sentinels", "all_equal"])
+def test_merge_level_kernel_matches_plain(cuda_device, timed, lengths, case):
+    """Runs whose pairs are not multiples of the CTA tile: one level, then
+    every level to one run in one call, with and without the events that
+    time the levels apart."""
+    rng = np.random.default_rng(len(lengths))
+    lanes = torch.from_numpy(_sort_case(case, sum(lengths), rng))
+    runs, at = [], 0
+    for n in lengths:
+        runs.append((at, n))
+        lanes[at:at + n] = lanes[at:at + n].sort().values
+        at += n
+    want, want_runs = ms.merge_level(lanes, runs, 1024)
+    before = ms.launches["merge_level"]
+    got, got_runs = ms.merge_level(lanes.to(cuda_device), runs, 1024)
+    torch.cuda.synchronize()
+    assert ms.launches["merge_level"] == before + 1
+    assert got_runs == want_runs
     assert torch.equal(got.cpu(), want)
+    nlevels = (len(runs) - 1).bit_length()
+    if timed:
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(nlevels)]
+        got, got_runs = ms._merge_levels_cuda(lanes.to(cuda_device), runs,
+                                              nlevels, events)
+    else:
+        got, got_runs = ms.merge_levels(lanes.to(cuda_device), runs, 1024)
+    torch.cuda.synchronize()
+    assert got_runs == [(0, lanes.numel())]
+    assert torch.equal(got.cpu(), torch.sort(lanes).values)
+    assert ms.launches["merge_level"] == before + 1 + nlevels
 
 
 @pytest.mark.cuda

@@ -110,12 +110,54 @@ def test_merge_level_matches_jax():
     assert torch.equal(got[4096:], s[4096:])
 
 
+@pytest.mark.parametrize("lengths", [[3072, 1024, 2048], [3072, 2048, 1024],
+                                     [5120, 1024, 2048, 3072, 1024]])
+def test_merge_level_non_uniform_runs_match_jax(lengths):
+    """Runs of unequal lengths, chunk 1024: the pair table the card's
+    wrapper builds (pairs, tile starts) agrees with the JAX `_pair_runs`,
+    next_runs agree, and the merge, the kernel's tile schedule at 2,048-
+    and 4,096-row tiles (short last tiles) and all levels to one run are
+    bit-equal to JAX."""
+    N = sum(lengths)
+    hi, lo = _keys(N, len(lengths))
+    runs, at = [], 0
+    for n in lengths:
+        runs.append((at, n))
+        at += n
+    lanes = _lanes(hi, lo)
+    for off, n in runs:
+        lanes[off:off + n] = lanes[off:off + n].sort().values
+    sh, sl = (jnp.asarray(w.astype(np.uint32)) for w in _words(lanes))
+    jh, jl, jruns = J.merge_level(sh, sl, runs, 1024, interpret=True)
+    jpairs, _ = J._pair_runs(runs)
+    for tile in (2048, 4096):
+        table, ntiles = T.pair_table(runs, tile)
+        assert [(a0, alen, a0 + alen, blen) for a0, alen, blen, _ in table] \
+            == jpairs
+        assert [t0 for *_, t0 in table] == list(np.cumsum(
+            [0] + [-(-(alen + blen) // tile) for _, alen, _, blen in jpairs]
+        )[:-1])
+        assert ntiles == sum(-(-(alen + blen) // tile)
+                             for _, alen, _, blen in jpairs)
+        got = T.merge_level_schedule_plain(lanes, runs, tile)
+        words = _words(got)
+        assert np.array_equal(words[0], np.asarray(jh).astype(np.int64))
+        assert np.array_equal(words[1], np.asarray(jl).astype(np.int64))
+    got, truns = T.merge_level(lanes, runs, 1024)
+    assert truns == jruns
+    assert torch.equal(got, T.merge_level_schedule_plain(lanes, runs, 2048))
+    got, truns = T.merge_levels(lanes, runs, 1024)
+    assert truns == [(0, N)]
+    assert torch.equal(got, torch.sort(lanes).values)
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda s: T.local_sort_blocks(s, 3000), "power of two"),
     (lambda s: T.local_sort_blocks(s[:5000], 4096), "multiple"),
     (lambda s: T.merge_level(s, [(0, 4096), (4096, 4096)], 512), ">= 1024"),
     (lambda s: T.merge_level(s, [(0, 4096), (6144, 2048)], 1024), "cover"),
     (lambda s: T.merge_level(s, [(0, 3072), (3072, 5120)], 2048), "cover"),
+    (lambda s: T.merge_levels(s, [(0, 4096), (4096, 2048)], 1024), "cover"),
     (lambda s: T.local_sort_blocks(s.to(torch.int32), 4096), "int64"),
     (lambda s: T.local_sort_blocks(s[::2], 2048), "contiguous"),
     (lambda s: T.local_sort_blocks(s, 4096, events=[None]), "three"),
