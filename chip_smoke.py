@@ -36,7 +36,18 @@ started together) and drives the port's paths on the card:
      shape, and the canonical 16-mers of phase 7's reads (11,141,120
      keys) into 2^24 slots and into the smallest table at load <= 0.9,
      against np.unique, beside torch.unique and count_batch at k=16, its
-     clear, insert and unpack launches timed apart.
+     clear, insert and unpack launches timed apart;
+  9. the in-memory `--mesh 1 --variant-sigmas 2 --min-variant-kmer-depth
+     20` (the on-device variant purge) on a ~42 MB FASTQ of 4 genomes at
+     200x, byte-identical to the host engine with the same "Removed N"
+     count, the purge's sources, rounds, candidates and device time (CUDA
+     events) printed;
+ 10. k > 32: phase 5's input at k=33 and k=95 on the in-memory `--mesh 1`
+     and at k=63 on `--streaming --mesh 1` (two- and three-lane keys),
+     each byte-identical to the host engine at the same k.
+Phase 3 also holds the kernel's two- and three-lane instantiations
+(k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
+and times them beside the one-lane kernel.
 
 Inputs come from the port's own generator and from seeded numpy. Fails
 (non-zero exit, no result line) without a CUDA device, outside a
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -196,6 +208,7 @@ def phase_kernel(rl, count_sorted):
             % (name, tm["kernel"], rl._kernel_lib().kmtpu_run_length_tile(),
                tm["plain"], bytes_bound_ms(16 * lanes.numel()),
                16 * lanes.numel() / (tm["kernel"] * 1e-3) / 1e9))
+    max_err = max(max_err, phase_lanes(rl, cases, gen, times))
     lanes = cases["drain_96M"][0]
     times["unique_consecutive"] = sum(
         cuda_ms(lambda: torch.unique_consecutive(lanes, return_counts=True),
@@ -208,12 +221,71 @@ def phase_kernel(rl, count_sorted):
     return max_err, times
 
 
-def generate(path: str, genome_mb: str) -> int:
+def lane_keys(lanes: torch.Tensor, L: int):
+    """L key lanes ordered as the one sorted lane `lanes`: lane j is
+    lanes >> 8 (L - 1 - j), so most run ends show in the last lane only,
+    and lexicographic order is that of `lanes`."""
+    return [lanes >> (8 * (L - 1 - j)) for j in range(L)]
+
+
+def phase_lanes(rl, cases, gen, times) -> int:
+    """The kernel's L = 2 and 3 instantiations against the plain version,
+    bit-equal, at the drain's shape and at edge cases (a length off the
+    tile, runs that end in the first lane only, an 8-byte-offset view);
+    device times at the drain's shape, beside the bound of (8L + 8) B a
+    row."""
+    max_err = 0
+    lanes, vals = cases["drain_96M"]
+    n = lanes.numel()
+    small = sorted_lanes(1 << 20, 5000, gen, 70_000)
+    ones = torch.ones(small.numel() + 1, dtype=torch.int32, device="cuda")
+    for L in (2, 3):
+        edge = {
+            "drain_96M": (lane_keys(lanes, L), vals),
+            "n_not_tile_multiple": ([x[:2048 * 5 + 3] for x in
+                                     lane_keys(small, L)], ones[:2048 * 5 + 3]),
+            "first_lane_only": ([small] + [torch.zeros_like(small)] * (L - 1),
+                                ones[1:]),
+            "offset_view": ([torch.cat([small[:1], small])[1:]
+                             for _ in range(L)], ones[1:])}
+        for name, (ks, v) in edge.items():
+            want = rl.run_length_sums_plain(ks, v)
+            got = rl.run_length_sums(ks, v)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs()
+                      .max())
+            if not torch.equal(got, want):
+                raise SystemExit("run_length kernel (L=%d) disagrees with its "
+                                 "plain version on %s (max abs err %d)"
+                                 % (L, name, err))
+            max_err = max(max_err, err)
+            log("kernel L=%d %-20s n=%-10d bit-equal"
+                % (L, name, ks[0].numel()))
+        ks = edge["drain_96M"][0]
+        turn = [("plain", lambda: rl.run_length_sums_plain(ks, vals)),
+                ("kernel", lambda: rl.run_length_sums(ks, vals))]
+        t = {}
+        for key, fn in turn + turn[::-1]:
+            t.setdefault(key, []).append(cuda_ms(fn, 10))
+        tm = times["drain_96M_L%d" % L] = {
+            key: sum(v) / len(v) for key, v in t.items()}
+        tm["bound"] = bytes_bound_ms((8 * L + 8) * n)
+        log("kernel L=%d drain_96M kernel %.4f ms, plain %.4f ms, bound "
+            "%.4f ms (%.0f GB/s at %d B/row); L=1 %.4f ms"
+            % (L, tm["kernel"], tm["plain"], tm["bound"],
+               (8 * L + 8) * n / (tm["kernel"] * 1e-3) / 1e9, 8 * L + 8,
+               times["drain_96M"]["kernel"]))
+        del edge, ks
+    return max_err
+
+
+def generate(path: str, genome_mb: str, genomes: str = "20",
+             coverage: str = "20") -> int:
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m",
                     "kmernator_tpu_torch.apps.generate_metagenome",
-                    "--genomes",
-                    "20", "--total-genome-mb", genome_mb, "--coverage", "20",
+                    "--genomes", genomes, "--total-genome-mb", genome_mb,
+                    "--coverage", coverage,
                     "--read-length", "150", "--seed", "7", "--out", path],
                    check=True, env=env_with_root())
     with open(path, "rb") as f:
@@ -231,12 +303,19 @@ def outputs(prefix: str):
             for n in sorted(os.listdir(d)) if n.startswith(base)}
 
 
-def host_engine(out: str, fq: str, extra_env) -> None:
+def host_engine(out: str, fq: str, extra_env, k: int = K,
+                args=()) -> str:
     """The oracle: the JAX package's host engine (no mesh), run as a
-    separate program."""
-    subprocess.run([sys.executable, "-m", "kmernator_tpu.apps.filter_reads",
-                    "--out", out] + FLAGS + ["31", fq], check=True,
-                   env=env_with_root(**extra_env))
+    separate program. Returns its standard error."""
+    proc = subprocess.run([sys.executable, "-m",
+                           "kmernator_tpu.apps.filter_reads", "--out", out]
+                          + FLAGS + list(args) + [str(k), fq],
+                          env=env_with_root(**extra_env),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit("the host engine exited %d:\n%s"
+                         % (proc.returncode, proc.stderr[-3000:]))
+    return proc.stderr
 
 
 def build_host_libraries() -> None:
@@ -265,16 +344,31 @@ def build_host_libraries() -> None:
         "native/io_native.cpp) in %.2f s" % (time.perf_counter() - t0))
 
 
-def phase_app(name: str, fq: str, n_reads: int, rl, extra_env):
-    """Port (in-process, on the card) vs host engine (subprocess): outputs
-    byte-identical, the kernel launched, the table on the card."""
+def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
+              args=(), port_args=()):
+    """Port (in-process, on the card) vs host engine (subprocess), both with
+    `args` at k, the port with `port_args` too: outputs byte-identical, the
+    kernel launched, the table on the card; with --variant-sigmas, the same
+    "Removed N" count, and the purge timed by CUDA events around it."""
     import kmernator_tpu_torch.apps.filter_reads as app
-    tables = []
+    tables, purges = [], []
 
     class Recorded(app.MeshStreamingSpectrum):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             tables.append(self)
+
+        def purge_variants_mesh(self, *a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            n = super().purge_variants_mesh(*a, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            purges.append({"removed": n, "device_ms": ev[0].elapsed_time(
+                ev[1]), "host_s": time.perf_counter() - t0,
+                **self.purge_stats})
+            return n
 
     port_out = os.path.join(WORK, name + "-port")
     host_out = os.path.join(WORK, name + "-host")
@@ -285,23 +379,27 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env):
     torch.cuda.reset_peak_memory_stats()
     try:
         rl.launches = 0
+        by_lanes = dict(rl.launches_by_lanes)
         t0 = time.perf_counter()
-        rc = app.run(["--device", "cuda", "--mesh", "1", "--out", port_out]
-                     + FLAGS + ["31", fq])
+        rc = app.run(["--device", "cuda", "--mesh", "1"] + list(port_args)
+                     + ["--out", port_out] + FLAGS + list(args)
+                     + [str(k), fq])
         torch.cuda.synchronize()
         t_port = time.perf_counter() - t0
         launches = rl.launches
+        by_lanes = {n: rl.launches_by_lanes[n] - by_lanes[n]
+                    for n in by_lanes}
     finally:
         app.MeshStreamingSpectrum = plain_class
-        for k, v in saved_env.items():
+        for key, v in saved_env.items():
             if v is None:
-                os.environ.pop(k, None)
+                os.environ.pop(key, None)
             else:
-                os.environ[k] = v
+                os.environ[key] = v
     if rc != 0:
         raise SystemExit("%s: port FilterReads exited %d" % (name, rc))
     t0 = time.perf_counter()
-    host_engine(host_out, fq, extra_env)
+    host_log = host_engine(host_out, fq, extra_env, k, args)
     t_host = time.perf_counter() - t0
     mine, want = outputs(port_out), outputs(host_out)
     if not want or set(mine) != set(want):
@@ -315,21 +413,45 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env):
     if launches <= 0:
         raise SystemExit("%s: the run-length kernel was never launched"
                          % name)
-    if len(tables) != 1 or tables[0].table_keys.device.type != "cuda" \
-            or tables[0].drains < 1:
+    if len(tables) != 1 or tables[0].drains < 1 or any(
+            x.device.type != "cuda" for x in tables[0].table_lanes):
         raise SystemExit("%s: the shard table did not live on the card"
                          % name)
     sp = tables[0]
-    log("%s: byte-identical (%s); run_length launches %d; table %d rows "
-        "on %s, %d drains, %d singletons purged; peak device memory %.2f GiB"
-        % (name, ", ".join(want), launches, sp.cap, sp.table_keys.device,
-           sp.drains, sp.purged_singletons,
-           torch.cuda.max_memory_allocated() / 2**30))
+    lanes = (k + 31) // 32
+    if by_lanes[lanes] != launches or sp.L != lanes:
+        raise SystemExit("%s: k=%d keys are %d lanes, but the table has %d "
+                         "and the kernel ran %s" % (name, k, lanes, sp.L,
+                                                    by_lanes))
+    purge = None
+    if "--variant-sigmas" in args:
+        found = re.findall(r"Removed (\d+) kmer-variants", host_log)
+        if len(purges) != 1 or len(found) != 1 or int(found[0]) != \
+                purges[0]["removed"] or purges[0]["removed"] <= 0:
+            raise SystemExit("%s: the port purged %s, the host engine "
+                             "logged %s" % (name, purges, found))
+        purge = purges[0]
+        log("%s: Removed %d kmer-variants on the card and on the host; "
+            "%d sources over %d rounds, %d candidate rows; purge %.1f ms "
+            "of device time (CUDA events), %.2f s host wall, %.1f%% of the "
+            "port's run" % (name, purge["removed"], purge["sources"],
+                            purge["rounds"], purge["candidates"],
+                            purge["device_ms"], purge["host_s"],
+                            100 * purge["device_ms"] / 1e3 / t_port))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log("%s: byte-identical (%s); k=%d (%d-lane keys), run_length launches "
+        "%d; table %d rows on %s, %d drains, %d singletons purged; peak "
+        "device memory %.2f GiB"
+        % (name, ", ".join(want), k, lanes, launches, sp.cap,
+           sp.table_lanes[0].device, sp.drains, sp.purged_singletons, peak))
     log("%s: port %.2f s = %.0f reads/s; host engine %.2f s = %.0f reads/s"
         % (name, t_port, n_reads / t_port, t_host, n_reads / t_host))
     for path in list(mine.values()) + list(want.values()):
         os.remove(path)
-    return launches
+    return {"name": name, "k": k, "launches": launches,
+            "by_lanes": by_lanes, "port_s": t_port,
+            "host_s": t_host, "reads": n_reads, "peak_gib": peak,
+            "purge": purge}
 
 
 def count_codes(seed: int = 11):
@@ -823,16 +945,15 @@ def main() -> int:
     t0 = time.perf_counter()
     fq = os.path.join(WORK, "meta256.fastq")
     n = generate(fq, "6")
-    launches = phase_app("streaming", fq, n, rl, {})
+    runs = [phase_app("streaming", fq, n, rl, {})]
     os.remove(fq)
     log("phase 4 streaming slice ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    fq = os.path.join(WORK, "meta32.fastq")
-    n = generate(fq, "0.75")
-    launches += phase_app("in-memory", fq, n, rl,
-                          {"KMTPU_AUTO_STREAM_MB": "64"})
-    os.remove(fq)
+    fq32 = os.path.join(WORK, "meta32.fastq")
+    n32 = generate(fq32, "0.75")
+    in_memory = {"KMTPU_AUTO_STREAM_MB": "64"}
+    runs.append(phase_app("in-memory", fq32, n32, rl, in_memory))
     log("phase 5 in-memory slice ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
@@ -844,13 +965,38 @@ def main() -> int:
 
     t0 = time.perf_counter()
     count = phase_count(ms, rl, smi)
-    launches += count["run_length"]
+    launches = sum(r["launches"] for r in runs) + count["run_length"]
     log("phase 7 count path ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
     hs = phase_hash(hi, smi)
     log("phase 8 hash insert: invariants hold, %d launches in the bench "
         "[%.1f s]" % (hs["launches"], time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    fq = os.path.join(WORK, "purge42.fastq")
+    n = generate(fq, "0.1", genomes="4", coverage="200")
+    purge_run = phase_app("purge", fq, n, rl, in_memory, args=[
+        "--variant-sigmas", "2", "--min-variant-kmer-depth", "20",
+        "--verbose", "1"])
+    os.remove(fq)
+    log("phase 9 on-device variant purge ok [%.1f s]"
+        % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    wide = [phase_app("wide-k33", fq32, n32, rl, in_memory, k=33),
+            phase_app("wide-k63-streaming", fq32, n32, rl, in_memory, k=63,
+                      port_args=["--streaming"]),
+            phase_app("wide-k95", fq32, n32, rl, in_memory, k=95)]
+    os.remove(fq32)
+    log("phase 10 k > 32 ok [%.1f s]" % (time.perf_counter() - t0))
+    runs += [purge_run] + wide
+    launches += sum(r["launches"] for r in [purge_run] + wide)
+    by_lanes = {L: sum(r["by_lanes"][L] for r in runs) for L in (1, 2, 3)}
+    by_lanes[1] += count["run_length"]
+    if min(by_lanes.values()) <= 0:
+        raise SystemExit("the main path did not launch the run-length "
+                         "kernel at every lane count: %s" % by_lanes)
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kmernator_tpu"))
@@ -863,6 +1009,8 @@ def main() -> int:
     r = hs["real"]
     log("earlier designs (recorded, not run here): %s"
         % json.dumps(PREV_MS))
+    log("FilterReads runs: %s" % json.dumps({r["name"]: {
+        key: v for key, v in r.items() if key != "name"} for r in runs}))
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",
@@ -880,7 +1028,14 @@ def main() -> int:
         "count_bound_ms": bytes_bound_ms(16 * COUNT_ROWS),
         "batch_ms": times["count_batch_2048x120"]["kernel"],
         "batch_plain_ms": times["count_batch_2048x120"]["plain"],
-        "batch_bound_ms": bytes_bound_ms(16 * BATCH_ROWS)}, {
+        "batch_bound_ms": bytes_bound_ms(16 * BATCH_ROWS),
+        "launches_by_lanes": by_lanes,
+        "lanes2_ms": times["drain_96M_L2"]["kernel"],
+        "lanes2_plain_ms": times["drain_96M_L2"]["plain"],
+        "lanes2_bound_ms": times["drain_96M_L2"]["bound"],
+        "lanes3_ms": times["drain_96M_L3"]["kernel"],
+        "lanes3_plain_ms": times["drain_96M_L3"]["plain"],
+        "lanes3_bound_ms": times["drain_96M_L3"]["bound"]}, {
         "name": "local_sort_blocks", "route": "cuda",
         "source": "kmernator_tpu_torch/csrc/merge_sort.cu",
         "replaces": "kmernator_tpu/parallel/pallas_sort.py:360",

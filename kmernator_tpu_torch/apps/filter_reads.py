@@ -22,8 +22,9 @@ source in its package imports and in these places:
   GPU raises) in place of `--jax-platform`, and checks `refusal` first.
 - Not copied: `run_streaming_distributed` with `_slice_pad_batch`, and
   the multi-process branches of `run`. Refused, each waiting for a later
-  PR: --distributed, --nprocs > 1, --mesh > 1, --gathered-logs, k > 32 on
-  a --mesh path, and --variant-sigmas > 0 with the in-memory --mesh.
+  PR: --distributed, --nprocs > 1, --mesh > 1 and --gathered-logs. k > 96
+  is refused on a --mesh path (keys of at most 3 int64 lanes; the JAX
+  package takes any k there).
 """
 from __future__ import annotations
 
@@ -210,13 +211,11 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
                              min_variant_depth: float = 512.0, *,
                              device: torch.device):
     """In-memory --mesh 1 counting: pass 1 streams the reads' good windows
-    into the device table in batches, pass 2 looks every window up on the
-    device. Returns the host path's ragged (counts, window_offsets)."""
+    into the device table in batches; with variant_sigmas > 0 the table is
+    purged on the device (min depth first, then the variant purge); pass 2
+    looks every window up on the device. Returns the host path's ragged
+    (counts, window_offsets)."""
     check_k(k)
-    if variant_sigmas > 0.0:
-        raise NotImplementedError(
-            "--variant-sigmas with the in-memory --mesh (the on-mesh "
-            "variant purge) waits for a later PR of kmernator_tpu_torch")
     L = max(rs.max_length(), k)
     codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
     B = codes.shape[0]
@@ -249,6 +248,14 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
         Log.warn("mesh build purged %d singletons under capacity pressure "
                  "(hash-skewed input; counts may undercount by 1); raise "
                  "--streaming-parts capacity" % sp.purged_singletons)
+    if variant_sigmas > 0.0:
+        # the on-device variant purge; singletons leave the table first,
+        # as on the host path, so they are never purge sources
+        sp.purge_min_depth(max(min_depth, 2))
+        purged = sp.purge_variants_mesh(variant_sigmas, variant_hamming,
+                                        min_variant_depth,
+                                        min_depth=max(min_depth, 2))
+        Log.verbose(1, "Removed %d kmer-variants (mesh, on-device)" % purged)
     want = np.ones((batch_reads, NW), bool)
     rows = []
     for s in range(0, n_batches * batch_reads, batch_reads):

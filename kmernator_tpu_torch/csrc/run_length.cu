@@ -4,12 +4,14 @@
 // (`run_length_counts`, kernel body `_kernel`): for keys sorted so that equal
 // keys are adjacent, out[i] = sum(vals[run]) when i is the last index of its
 // run of equal keys, and 0 elsewhere. Any n >= 0 is accepted; there is no
-// block-multiple rule.
+// block-multiple rule. A key is L = 1, 2 or 3 int64 lanes (k <= 32, 64, 96;
+// ops/kmer.py encode_lanes), one array a lane; two rows are one key when
+// every lane is equal. The kernel is a template on L.
 //
-// What bounds it: bytes. Each row is read once (8 B key + 4 B value) and
-// written once (4 B), 16 B a row, against a handful of integer operations,
-// so the kernel sits far below the card's compute roofline and its floor is
-// 16 B * n / (device memory bandwidth).
+// What bounds it: bytes. Each row is read once (8 B a lane + 4 B value) and
+// written once (4 B), 8L + 8 B a row, against a handful of integer
+// operations, so the kernel sits far below the card's compute roofline and
+// its floor is (8L + 8) B * n / (device memory bandwidth).
 //
 // Design: one launch, a single-pass segmented scan with decoupled look-back
 // (Merrill and Garland) over the `Seg` monoid. The TPU kernel walks its grid
@@ -22,7 +24,11 @@
 //     shared memory padded one slot every 16 keys, and each thread then
 //     takes its ITEMS consecutive keys into registers without bank
 //     conflicts; each key's neighbours are in shared memory, and the one on
-//     each side of the tile is one extra load. A thread's ITEMS values are
+//     each side of the tile is one extra load. Lanes pass through the same
+//     shared buffer one after another (a barrier between them), each
+//     thread folding "differs from the row before / after" into two bit
+//     masks, so shared memory does not grow with L; at L = 1 the loop is
+//     the single pass of the one-lane kernel. A thread's ITEMS values are
 //     contiguous and 16-byte aligned, so it loads them as its own 16-byte
 //     words straight into registers: a warp's loads cover whole sectors,
 //     and no shared memory or barrier is spent on them.
@@ -193,11 +199,18 @@ __device__ Seg look_back(const unsigned long long* desc, long long tile) {
   }
 }
 
+// The L key lanes of a row (ops/kmer.py encode_lanes): two rows are one key
+// when every lane is equal.
+template <int L>
+struct Lanes {
+  const int64_t* p[L];
+};
+
+template <int L>
 __global__ void __launch_bounds__(THREADS)
-run_length_scan(const int64_t* __restrict__ keys,
-                const int32_t* __restrict__ vals, int32_t* __restrict__ out,
-                int64_t n, unsigned long long* __restrict__ scratch,
-                int vec) {
+run_length_scan(Lanes<L> keys, const int32_t* __restrict__ vals,
+                int32_t* __restrict__ out, int64_t n,
+                unsigned long long* __restrict__ scratch, int vec) {
   __shared__ int64_t skey[kslot(TILE) + 1];
   __shared__ Seg wsum[33];
   __shared__ long long s_tile;
@@ -213,57 +226,76 @@ run_length_scan(const int64_t* __restrict__ keys,
   const bool full = vec && rows == TILE;
   const int j0 = threadIdx.x * ITEMS;    // this thread's first row
 
-  // keys through shared memory; each thread's ITEMS values, 16-byte
-  // aligned and contiguous, straight into registers
+  // one lane at a time through shared memory: bit t of `dprev` (`dnext`)
+  // says row j0 + t differs from the row before (after) it in some lane;
+  // each thread's ITEMS values, 16-byte aligned and contiguous, go straight
+  // into registers with the first lane
   int v[ITEMS];
-  if (full) {
-    const longlong2* k2 = reinterpret_cast<const longlong2*>(keys + base);
+  unsigned dprev = 0, dnext = 0;
 #pragma unroll
-    for (int c = 0; c < ITEMS / 2; ++c) {
-      const int i = threadIdx.x + c * THREADS;
-      const longlong2 x = k2[i];
-      skey[kslot(2 * i)] = x.x;
-      skey[kslot(2 * i + 1)] = x.y;
+  for (int l = 0; l < L; ++l) {
+    const int64_t* __restrict__ lane = keys.p[l];
+    if (l > 0) __syncthreads();        // every read of the last lane is done
+    if (full) {
+      const longlong2* k2 = reinterpret_cast<const longlong2*>(lane + base);
+#pragma unroll
+      for (int c = 0; c < ITEMS / 2; ++c) {
+        const int i = threadIdx.x + c * THREADS;
+        const longlong2 x = k2[i];
+        skey[kslot(2 * i)] = x.x;
+        skey[kslot(2 * i + 1)] = x.y;
+      }
+      if (l == 0) {
+        const int4* v4 = reinterpret_cast<const int4*>(vals + base + j0);
+#pragma unroll
+        for (int c = 0; c < ITEMS / 4; ++c) {
+          const int4 x = v4[c];
+          v[4 * c] = x.x;
+          v[4 * c + 1] = x.y;
+          v[4 * c + 2] = x.z;
+          v[4 * c + 3] = x.w;
+        }
+      }
+    } else {
+      for (int j = threadIdx.x; j < TILE; j += THREADS)
+        skey[kslot(j)] = j < rows ? lane[base + j] : 0;
+      if (l == 0) {
+#pragma unroll
+        for (int t = 0; t < ITEMS; ++t)
+          v[t] = j0 + t < rows ? vals[base + j0 + t] : 0;
+      }
     }
-    const int4* v4 = reinterpret_cast<const int4*>(vals + base + j0);
-#pragma unroll
-    for (int c = 0; c < ITEMS / 4; ++c) {
-      const int4 x = v4[c];
-      v[4 * c] = x.x;
-      v[4 * c + 1] = x.y;
-      v[4 * c + 2] = x.z;
-      v[4 * c + 3] = x.w;
-    }
-  } else {
-    for (int j = threadIdx.x; j < TILE; j += THREADS)
-      skey[kslot(j)] = j < rows ? keys[base + j] : 0;
-#pragma unroll
-    for (int t = 0; t < ITEMS; ++t)
-      v[t] = j0 + t < rows ? vals[base + j0 + t] : 0;
-  }
-  // the key before the tile; the key after it (a short tile is the last,
-  // and the loop above left 0 after its rows)
-  if (threadIdx.x == 0) skey[0] = base > 0 ? keys[base - 1] : 0;
-  if (threadIdx.x == 1 && rows == TILE)
-    skey[kslot(TILE)] = base + TILE < n ? keys[base + TILE] : 0;
-  __syncthreads();
+    // the key before the tile; the key after it (a short tile is the
+    // last, and the loop above left 0 after its rows)
+    if (threadIdx.x == 0) skey[0] = base > 0 ? lane[base - 1] : 0;
+    if (threadIdx.x == 1 && rows == TILE)
+      skey[kslot(TILE)] = base + TILE < n ? lane[base + TILE] : 0;
+    __syncthreads();
 
-  // this thread's ITEMS consecutive rows: run starts and ends as bit masks
-  int64_t k[ITEMS];
+    // this thread's ITEMS consecutive rows of the lane
+    int64_t k[ITEMS];
 #pragma unroll
-  for (int t = 0; t < ITEMS; ++t) k[t] = skey[kslot(j0 + t)];
-  const int64_t before = skey[j0 == 0 ? 0 : kslot(j0 - 1)];
-  const int64_t after = skey[kslot(j0 + ITEMS)];
+    for (int t = 0; t < ITEMS; ++t) k[t] = skey[kslot(j0 + t)];
+    const int64_t before = skey[j0 == 0 ? 0 : kslot(j0 - 1)];
+    const int64_t after = skey[kslot(j0 + ITEMS)];
+#pragma unroll
+    for (int t = 0; t < ITEMS; ++t) {
+      const int64_t prev = t == 0 ? before : k[t - 1];
+      const int64_t next = t == ITEMS - 1 ? after : k[t + 1];
+      dprev |= (unsigned)(k[t] != prev) << t;
+      dnext |= (unsigned)(k[t] != next) << t;
+    }
+  }
+
+  // run starts and ends as bit masks
   unsigned starts = 0, ends = 0;
   Seg agg = Seg{0, 0};
 #pragma unroll
   for (int t = 0; t < ITEMS; ++t) {
     const int j = j0 + t;
     if (j < rows) {
-      const int64_t prev = t == 0 ? before : k[t - 1];
-      const int64_t next = t == ITEMS - 1 ? after : k[t + 1];
-      const bool s = (base + j == 0) || k[t] != prev;
-      const bool e = (base + j == n - 1) || k[t] != next;
+      const bool s = (base + j == 0) || ((dprev >> t) & 1);
+      const bool e = (base + j == n - 1) || ((dnext >> t) & 1);
       starts |= (unsigned)s << t;
       ends |= (unsigned)e << t;
       agg = combine(agg, Seg{s, v[t]});
@@ -314,6 +346,23 @@ run_length_scan(const int64_t* __restrict__ keys,
   if (carried) emit(combine(s_prefix, run));
 }
 
+template <int L>
+int launch(Lanes<L> keys, const void* vals, void* out, void* scratch,
+           int64_t n, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  const int64_t ntiles = (n + TILE - 1) / TILE;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0, (size_t)(ntiles + 1) * sizeof(unsigned long long), st);
+  if (err != cudaSuccess) return (int)err;
+  int vec = ((uintptr_t)vals % 16 == 0) && ((uintptr_t)out % 16 == 0);
+  for (int l = 0; l < L; ++l) vec = vec && (uintptr_t)keys.p[l] % 16 == 0;
+  run_length_scan<L><<<(unsigned)ntiles, THREADS, 0, st>>>(
+      keys, static_cast<const int32_t*>(vals), static_cast<int32_t*>(out), n,
+      static_cast<unsigned long long*>(scratch), vec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -321,25 +370,25 @@ extern "C" {
 // Rows a CTA scans.
 int kmtpu_run_length_tile() { return TILE; }
 
-// keys [n] int64 sorted so equal keys are adjacent, vals [n] int32,
-// out [n] int32, scratch [1 + ceil(n / kmtpu_run_length_tile())] 64-bit
-// words (zeroed here, on the stream). Launches on `stream` and returns the
-// first CUDA error (0 = launched).
-int kmtpu_run_length_sums(const void* keys, const void* vals, void* out,
+// Keys of L = 1, 2 or 3 int64 lanes k0..k[L-1], each [n], sorted
+// lexicographically so equal keys are adjacent (unused lane pointers are
+// ignored); vals [n] int32, out [n] int32, scratch [1 + ceil(n /
+// kmtpu_run_length_tile())] 64-bit words (zeroed here, on the stream).
+// Launches on `stream` and returns the first CUDA error (0 = launched), or
+// -1 for another L.
+int kmtpu_run_length_sums(int L, const void* k0, const void* k1,
+                          const void* k2, const void* vals, void* out,
                           void* scratch, int64_t n, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const int64_t ntiles = (n + TILE - 1) / TILE;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaMemsetAsync(
-      scratch, 0, (size_t)(ntiles + 1) * sizeof(unsigned long long), st);
-  if (err != cudaSuccess) return (int)err;
-  const int vec = ((uintptr_t)keys % 16 == 0) && ((uintptr_t)vals % 16 == 0)
-                  && ((uintptr_t)out % 16 == 0);
-  run_length_scan<<<(unsigned)ntiles, THREADS, 0, st>>>(
-      static_cast<const int64_t*>(keys), static_cast<const int32_t*>(vals),
-      static_cast<int32_t*>(out), n,
-      static_cast<unsigned long long*>(scratch), vec);
-  return (int)cudaGetLastError();
+  const int64_t* a = static_cast<const int64_t*>(k0);
+  const int64_t* b = static_cast<const int64_t*>(k1);
+  const int64_t* c = static_cast<const int64_t*>(k2);
+  switch (L) {
+    case 1: return launch<1>(Lanes<1>{{a}}, vals, out, scratch, n, stream);
+    case 2: return launch<2>(Lanes<2>{{a, b}}, vals, out, scratch, n, stream);
+    case 3:
+      return launch<3>(Lanes<3>{{a, b, c}}, vals, out, scratch, n, stream);
+    default: return -1;
+  }
 }
 
 }  // extern "C"

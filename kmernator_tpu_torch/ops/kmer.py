@@ -13,14 +13,18 @@ Two halves:
   bits. `pack16_torch` is the host `pack16` (renamed: the host one keeps
   its name and signature for the copied host modules).
 
-For W <= 2 (k <= 32) the canonical key of a window fits one int64 "lane":
+A key of W words is held in L = ceil(W/2) int64 "lanes"; lane j packs
+words 2j and 2j+1:
 
-    lane = ((hi << 32) | lo) ^ (1 << 63)
+    lane_j = ((w[2j] << 32) | w[2j+1]) ^ (1 << 63)
 
-so signed int64 order equals the JAX package's unsigned lexicographic
-(hi, lo) order, and the all-ones sentinel becomes INT64_MAX, which still
-sorts last. For W = 1 the low word is filled with ones, which keeps the
-order and maps the sentinel word to the same INT64_MAX.
+so a lexicographic signed int64 compare over the lanes equals the JAX
+package's unsigned lexicographic word order, and the all-ones sentinel
+becomes INT64_MAX in every lane, which still sorts last. When W is odd the
+last lane fills its low word with ones (as W = 1 does), which keeps the
+order and maps the sentinel word to the same INT64_MAX. For W <= 2 (k <=
+32) the key is one lane (`encode_lane`, `decode_lane`); up to W = 6 (k <=
+96) it is at most 3 lanes (`encode_lanes`, `decode_lanes`).
 """
 from __future__ import annotations
 
@@ -246,16 +250,23 @@ MASK32 = 0xFFFFFFFF
 SENTINEL_WORD = 0xFFFFFFFF
 SIGN = -(1 << 63)                      # the int64 with only bit 63 set
 SENTINEL_LANE = (1 << 63) - 1          # INT64_MAX: all-ones key ^ SIGN
-MAX_K = 32
+MAX_LANES = 3
+MAX_K = 32 * MAX_LANES                 # 96: the reference's MAX_KMER_SIZE is 95
+
+
+def nlanes(W: int) -> int:
+    """int64 key lanes of a W-word key."""
+    return (W + 1) // 2
 
 
 def check_k(k: int) -> None:
-    """The one-lane key layout holds W <= 2 words (k <= 32)."""
+    """The key layout holds at most MAX_LANES lanes: W <= 6 words (k <=
+    96)."""
     if not 0 < k <= MAX_K:
         raise NotImplementedError(
-            "kmernator_tpu_torch supports 1 <= k <= %d (keys in one int64 "
-            "lane); k=%d (W=%d words) waits for the multi-lane key layout "
-            "of a later PR" % (MAX_K, k, nwords(k)))
+            "kmernator_tpu_torch supports 1 <= k <= %d (keys in at most %d "
+            "int64 lanes); k=%d (W=%d words) is past the port's key layout"
+            % (MAX_K, MAX_LANES, k, nwords(k)))
 
 
 def pack16_torch(codes: torch.Tensor) -> torch.Tensor:
@@ -296,3 +307,25 @@ def decode_lane(lane: torch.Tensor, W: int) -> List[torch.Tensor]:
     u = lane ^ SIGN
     hi = (u >> 32) & MASK32
     return [hi] if W == 1 else [hi, u & MASK32]
+
+
+def encode_lanes(cols: List[torch.Tensor]) -> List[torch.Tensor]:
+    """W word columns (int64 in [0, 2^32)) -> L = ceil(W/2) order-preserving
+    int64 key lanes: a lexicographic signed compare over them equals the
+    unsigned word order. One column pair a lane, encoded by encode_lane
+    (an odd last word fills its lane's low word with ones)."""
+    if not 0 < len(cols) <= 2 * MAX_LANES:
+        raise NotImplementedError("keys hold 1 to %d words, got %d"
+                                  % (2 * MAX_LANES, len(cols)))
+    return [encode_lane(cols[j:j + 2]) for j in range(0, len(cols), 2)]
+
+
+def decode_lanes(lanes: List[torch.Tensor], W: int) -> List[torch.Tensor]:
+    """Inverse of encode_lanes: L int64 lanes -> W word columns."""
+    if len(lanes) != nlanes(W):
+        raise ValueError("a %d-word key has %d lanes, got %d"
+                         % (W, nlanes(W), len(lanes)))
+    cols = []
+    for j, lane in enumerate(lanes):
+        cols += decode_lane(lane, min(2, W - 2 * j))
+    return cols

@@ -4,9 +4,10 @@ Twins of kmernator_tpu/parallel/device_spectrum.py: `extract_canonical_cols`
 (with `_shift_left_cols`) and `count_batch`, plus copies of the numpy-only
 host helpers `pack_readset`, `ragged_to_padded` and `padded_to_ragged`
 (copied, not imported: the JAX module imports jax). Words are int64 in
-[0, 2^32) (ops/kmer.py); `count_batch` sorts one int64 key lane, with the
-merge-path sort kernels (parallel/merge_sort.py) where `_use_merge_sort`
-says so and with torch.sort otherwise, and takes its run totals from the
+[0, 2^32) (ops/kmer.py); `count_batch` sorts the int64 key lanes (one
+lane for k <= 32, with the merge-path sort kernels (parallel/merge_sort.py)
+where `_use_merge_sort` says so and with torch.sort otherwise; L > 1 lanes
+lexicographically with `sort_lanes`), and takes its run totals from the
 run-length kernel (parallel/run_length.py).
 """
 from __future__ import annotations
@@ -19,10 +20,10 @@ import torch
 
 from kmernator_tpu_torch.io.reads import BASE_CODE
 from kmernator_tpu_torch.ops.kmer import (MASK32, SENTINEL_LANE,
-                                          SENTINEL_WORD, decode_lane,
-                                          encode_lane,
-                                          last_word_mask, nwords,
-                                          pack16_torch, reverse_bases)
+                                          SENTINEL_WORD, decode_lanes,
+                                          encode_lanes, last_word_mask,
+                                          nwords, pack16_torch,
+                                          reverse_bases)
 from kmernator_tpu_torch.ops.weights import probability_table
 from kmernator_tpu_torch.parallel.merge_sort import merge_sort_lanes
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
@@ -159,6 +160,29 @@ def extract_canonical_cols(codes: torch.Tensor, lengths: torch.Tensor,
     return canon, fwd_le, valid
 
 
+def sort_lanes(lanes: List[torch.Tensor]):
+    """Sort keys of L int64 lanes lexicographically -> (sorted lanes,
+    permutation). One lane: one torch.sort. L > 1: L stable torch.sort
+    passes from the last lane to the first, each over the lane gathered by
+    the permutation so far. Equal keys may come in any order for L = 1 (as
+    the JAX package's unstable lax.sort); for L > 1 they keep input order."""
+    if len(lanes) == 1:
+        s, perm = torch.sort(lanes[0])
+        return [s], perm
+    perm = torch.sort(lanes[-1], stable=True).indices
+    for lane in lanes[-2::-1]:
+        perm = perm[torch.sort(lane[perm], stable=True).indices]
+    return [lane[perm] for lane in lanes], perm
+
+
+def is_sentinel(lanes: List[torch.Tensor]) -> torch.Tensor:
+    """[N] bool: the key is the all-ones sentinel (every lane INT64_MAX)."""
+    sent = lanes[0] == SENTINEL_LANE
+    for lane in lanes[1:]:
+        sent &= lane == SENTINEL_LANE
+    return sent
+
+
 def count_batch(keys: Union[torch.Tensor, Sequence[torch.Tensor]],
                 good: torch.Tensor, min_count: int = 1):
     """Spectrum-build-only counting of one batch (the JAX count_batch).
@@ -176,21 +200,24 @@ def count_batch(keys: Union[torch.Tensor, Sequence[torch.Tensor]],
     sent = torch.full((), SENTINEL_LANE, dtype=torch.int64,
                       device=cols[0].device)
     # pre-mask bad windows to the sentinel so only good observations count
-    lanes = torch.where(good, encode_lane(cols), sent)
-    if _use_merge_sort(N, W, lanes.device):
-        s = merge_sort_lanes(lanes)
+    lanes = [torch.where(good, lane, sent) for lane in encode_lanes(cols)]
+    if len(lanes) > 1:
+        s = sort_lanes(lanes)[0]
+    elif _use_merge_sort(N, W, good.device):
+        s = [merge_sort_lanes(lanes[0])]
     else:
-        s = torch.sort(lanes).values
+        s = [torch.sort(lanes[0]).values]
     # every row counts 1, so each run total is the run's length, at its end
     ends_total = run_length_sums(
-        s, torch.ones(N, dtype=torch.int32, device=s.device))
+        s, torch.ones(N, dtype=torch.int32, device=good.device))
     ends = torch.nonzero(ends_total > 0).squeeze(1)
     starts = torch.zeros_like(ends)
     starts[1:] = ends[:-1] + 1
-    cnt = torch.zeros(N, dtype=torch.int32, device=s.device)
+    cnt = torch.zeros(N, dtype=torch.int32, device=good.device)
     cnt[starts] = ends_total[ends]
-    table_counts = torch.where((s != sent) & (cnt >= min_count), cnt,
+    table_counts = torch.where(~is_sentinel(s) & (cnt >= min_count), cnt,
                                torch.zeros_like(cnt))
     keep = table_counts > 0
-    out_keys = torch.stack(decode_lane(torch.where(keep, s, sent), W), dim=-1)
+    out_keys = torch.stack(decode_lanes(
+        [torch.where(keep, lane, sent) for lane in s], W), dim=-1)
     return out_keys, table_counts, keep.sum()

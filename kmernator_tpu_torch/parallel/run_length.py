@@ -4,8 +4,9 @@
 convention of kmernator_tpu/parallel/pallas_count.py: for keys sorted
 lexicographically by (hi, lo), the int32 count of good entries in each run
 of equal keys, written at the run's LAST element, 0 elsewhere.
-`run_length_sums(lanes, vals)` is the body both share, over int64 key lanes
-(ops/kmer.py encode_lane) and int32 values.
+`run_length_sums(lanes, vals)` is the body both share, over keys of L = 1,
+2 or 3 int64 lanes (ops/kmer.py encode_lanes: one tensor for L = 1, or a
+list of L tensors, sorted lexicographically) and int32 values.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 csrc/run_length.cu on the current stream; on a CPU tensor it takes the
@@ -17,12 +18,16 @@ plain PyTorch.
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Union
 
 import torch
 
-from kmernator_tpu_torch.ops.kmer import encode_lane
+from kmernator_tpu_torch.ops.kmer import MAX_LANES, encode_lane
+
+Lanes = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 launches = 0          # kernel launches made by run_length_sums on CUDA tensors
+launches_by_lanes = {1: 0, 2: 0, 3: 0}   # the same, by the keys' lane count
 
 _lib = None
 
@@ -35,22 +40,39 @@ def _kernel_lib():
         lib.kmtpu_run_length_tile.argtypes = []
         lib.kmtpu_run_length_tile.restype = ctypes.c_int
         lib.kmtpu_run_length_sums.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+            ctypes.c_int64, ctypes.c_void_p]
         lib.kmtpu_run_length_sums.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def run_length_sums_plain(lanes: torch.Tensor,
-                          vals: torch.Tensor) -> torch.Tensor:
+def _as_list(lanes: Lanes) -> List[torch.Tensor]:
+    return [lanes] if isinstance(lanes, torch.Tensor) else list(lanes)
+
+
+def _run_starts(lanes: List[torch.Tensor]) -> torch.Tensor:
+    """[N] bool: row i starts a run (differs from row i-1 in some lane)."""
+    n = lanes[0].numel()
+    start = torch.ones(n, dtype=torch.bool, device=lanes[0].device)
+    if n > 1:
+        diff = lanes[0][1:] != lanes[0][:-1]
+        for lane in lanes[1:]:
+            diff |= lane[1:] != lane[:-1]
+        start[1:] = diff
+    return start
+
+
+def run_length_sums_plain(lanes: Lanes, vals: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: prefix sums differenced at run ends."""
-    n = lanes.numel()
-    out = torch.zeros(n, dtype=torch.int32, device=lanes.device)
+    lanes = _as_list(lanes)
+    n = lanes[0].numel()
+    out = torch.zeros(n, dtype=torch.int32, device=lanes[0].device)
     if n == 0:
         return out
-    is_end = torch.ones(n, dtype=torch.bool, device=lanes.device)
-    is_end[:-1] = lanes[1:] != lanes[:-1]
+    is_end = torch.ones(n, dtype=torch.bool, device=lanes[0].device)
+    is_end[:-1] = _run_starts(lanes)[1:]
     ends = torch.nonzero(is_end).squeeze(1)
     cum = torch.cumsum(vals, 0, dtype=torch.int64)[ends]
     prev = torch.cat([cum.new_zeros(1), cum[:-1]])
@@ -58,26 +80,26 @@ def run_length_sums_plain(lanes: torch.Tensor,
     return out
 
 
-def run_length_schedule_plain(lanes: torch.Tensor, vals: torch.Tensor,
+def run_length_schedule_plain(lanes: Lanes, vals: torch.Tensor,
                               tile: int) -> torch.Tensor:
     """The kernel's schedule in plain PyTorch: tiles of `tile` rows, each
     scanned on its own into run-end partial sums and an aggregate (did a
     run start in the tile, the sum since its last start), then the carry
     into each tile found by looking back over its predecessors' aggregates
     until one holds a run start. Sums wrap at 32 bits as the kernel's do."""
-    n = lanes.numel()
-    out = torch.zeros(n, dtype=torch.int32, device=lanes.device)
+    lanes = _as_list(lanes)
+    n = lanes[0].numel()
+    out = torch.zeros(n, dtype=torch.int32, device=lanes[0].device)
     if n == 0:
         return out
-    start = torch.ones(n, dtype=torch.bool, device=lanes.device)
-    start[1:] = lanes[1:] != lanes[:-1]
-    end = torch.ones(n, dtype=torch.bool, device=lanes.device)
+    start = _run_starts(lanes)
+    end = torch.ones(n, dtype=torch.bool, device=out.device)
     end[:-1] = start[1:]
     aggs = []                            # (flag, sum) of each tile
     for t0 in range(0, n, tile):
         s, e = start[t0:t0 + tile], end[t0:t0 + tile]
         x = vals[t0:t0 + tile].to(torch.int64)
-        idx = torch.arange(s.numel(), device=lanes.device)
+        idx = torch.arange(s.numel(), device=out.device)
         last = torch.cummax(torch.where(s, idx, -1), 0).values
         cum = torch.cumsum(x, 0)
         before = torch.where(last >= 0, (cum - x)[last.clamp(min=0)], 0)
@@ -94,49 +116,59 @@ def run_length_schedule_plain(lanes: torch.Tensor, vals: torch.Tensor,
     return out
 
 
-def _run_length_sums_cuda(lanes: torch.Tensor,
+def _run_length_sums_cuda(lanes: List[torch.Tensor],
                           vals: torch.Tensor) -> torch.Tensor:
     global launches
     lib = _kernel_lib()
-    n = lanes.numel()
-    out = torch.empty(n, dtype=torch.int32, device=lanes.device)
+    n = lanes[0].numel()
+    dev = lanes[0].device
+    out = torch.empty(n, dtype=torch.int32, device=dev)
     # the tile counter and one descriptor a tile, zeroed by the entry point
     scratch = torch.empty(1 + -(-n // lib.kmtpu_run_length_tile()),
-                          dtype=torch.int64, device=lanes.device)
-    with torch.cuda.device(lanes.device):
-        stream = torch.cuda.current_stream(lanes.device).cuda_stream
-        err = lib.kmtpu_run_length_sums(lanes.data_ptr(), vals.data_ptr(),
+                          dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [x.data_ptr() for x in lanes] + [None] * (3 - len(lanes))
+        err = lib.kmtpu_run_length_sums(len(lanes), *ptrs, vals.data_ptr(),
                                         out.data_ptr(), scratch.data_ptr(),
                                         n, stream)
     if err != 0:
         raise RuntimeError("run_length kernel launch failed: CUDA error %d"
                            % err)
     launches += 1
+    launches_by_lanes[len(lanes)] += 1
     return out
 
 
-def run_length_sums(lanes: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """lanes [N] int64 sorted so equal keys are adjacent, vals [N] int32 ->
-    [N] int32: the sum of vals over each run at the run's last index, 0
-    elsewhere. Any N >= 0."""
-    if lanes.dtype != torch.int64 or vals.dtype != torch.int32:
-        raise TypeError("run_length_sums takes int64 lanes and int32 values, "
-                        "got %s and %s" % (lanes.dtype, vals.dtype))
-    if lanes.dim() != 1 or lanes.shape != vals.shape:
-        raise ValueError("run_length_sums takes two 1-D tensors of one "
-                         "length, got %s and %s"
-                         % (tuple(lanes.shape), tuple(vals.shape)))
-    if lanes.device != vals.device:
-        raise ValueError("lanes on %s but vals on %s"
-                         % (lanes.device, vals.device))
-    if not (lanes.is_contiguous() and vals.is_contiguous()):
-        raise ValueError("run_length_sums takes contiguous tensors")
-    if lanes.device.type == "cpu":
+def run_length_sums(lanes: Lanes, vals: torch.Tensor) -> torch.Tensor:
+    """lanes: [N] int64, or a list of L <= 3 such lanes, sorted
+    (lexicographically over the lanes) so equal keys are adjacent; vals [N]
+    int32 -> [N] int32: the sum of vals over each run at the run's last
+    index, 0 elsewhere. Any N >= 0."""
+    lanes = _as_list(lanes)
+    if not 0 < len(lanes) <= MAX_LANES:
+        raise ValueError("run_length_sums takes 1 to %d key lanes, got %d"
+                         % (MAX_LANES, len(lanes)))
+    for lane in lanes:
+        if lane.dtype != torch.int64 or vals.dtype != torch.int32:
+            raise TypeError("run_length_sums takes int64 lanes and int32 "
+                            "values, got %s and %s"
+                            % (lane.dtype, vals.dtype))
+        if lane.dim() != 1 or lane.shape != vals.shape:
+            raise ValueError("run_length_sums takes 1-D tensors of one "
+                             "length, got %s and %s"
+                             % (tuple(lane.shape), tuple(vals.shape)))
+        if lane.device != vals.device:
+            raise ValueError("lanes on %s but vals on %s"
+                             % (lane.device, vals.device))
+        if not (lane.is_contiguous() and vals.is_contiguous()):
+            raise ValueError("run_length_sums takes contiguous tensors")
+    if vals.device.type == "cpu":
         return run_length_sums_plain(lanes, vals)
-    if lanes.device.type == "cuda":
+    if vals.device.type == "cuda":
         return _run_length_sums_cuda(lanes, vals)
     raise ValueError("run_length_sums has no kernel for device %s"
-                     % lanes.device)
+                     % vals.device)
 
 
 def run_length_counts(hi: torch.Tensor, lo: torch.Tensor,

@@ -7,8 +7,9 @@ installed:
 The CUDA results are held to the same function on CPU tensors, which takes
 the plain PyTorch versions. Tolerance: none for keys, counts, lookups and
 sorted lanes; table weights to 1e-6 of the total weight the table has
-taken in (both are differences of float32 prefix sums over a drain, which
-the card's scan rounds in another order than the CPU's). The hash insert
+taken in (both are differences of float64 prefix sums over a drain, which
+the card's scan rounds in another order than the CPU's, rounded to
+float32). The variant purge's marks and tables are bit-equal. The hash insert
 places keys in an order that depends on timing, so it is held to its plain
 version through the order-free invariants of `check_invariants`, exactly.
 """
@@ -16,12 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from kmernator_tpu_torch.ops import kmer as tk
 from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE, encode_lane
 from kmernator_tpu_torch.parallel import device_spectrum as ds
 from kmernator_tpu_torch.parallel import hash_insert as hi
 from kmernator_tpu_torch.parallel import merge_sort as ms
 from kmernator_tpu_torch.parallel import run_length as rl
 from kmernator_tpu_torch.parallel.mesh import make_mesh
+from kmernator_tpu_torch.parallel import mesh_stream as mst
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
 
 
@@ -55,6 +58,48 @@ def test_kernel_matches_plain(cuda_device, size):
     torch.cuda.synchronize()
     assert rl.launches == before + 1
     assert torch.equal(got.cpu(), want)
+
+
+def _sorted_lane_keys(rng, n, L, n_keys):
+    """n keys of L int64 lanes from n_keys distinct ones, sorted
+    lexicographically; many keys differ in their last lane only, and the
+    sentinel key (every lane INT64_MAX) and keys with one lane INT64_MAX
+    are among them."""
+    base = rng.integers(-(1 << 63), (1 << 63) - 1, (max(n_keys, 1), L),
+                        dtype=np.int64)
+    base[1::2, :L - 1] = base[0::2, :L - 1][:len(base[1::2])]
+    base[0] = SENTINEL_LANE
+    if len(base) > 2:
+        base[1, 0] = SENTINEL_LANE
+    keys = base[rng.integers(0, len(base), n)]
+    keys = keys[np.lexsort(keys.T[::-1])] if n else keys
+    return [torch.from_numpy(np.ascontiguousarray(keys[:, j]))
+            for j in range(L)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [2, 3])
+@pytest.mark.parametrize("size", [lambda t: 0, lambda t: 1,
+                                  lambda t: t - 1, lambda t: t + 1,
+                                  lambda t: 3 * t + 5, lambda t: 5000 * t + 3])
+def test_kernel_lanes_match_plain(cuda_device, L, size):
+    """The L-lane instantiations: lengths around the tile and a grid far
+    beyond the resident CTAs; runs that split on the last lane only; the
+    same rows through the scalar path (an 8-byte-offset view)."""
+    N = size(_rl_tile())
+    rng = np.random.default_rng(N + L)
+    lanes = _sorted_lane_keys(rng, N + 1, L, max(N // 5, 1))
+    vals = torch.from_numpy(rng.integers(0, 5, N + 1).astype(np.int32))
+    for view in (slice(0, N), slice(1, N + 1)):
+        cpu = [x[view].contiguous() for x in lanes]
+        want = rl.run_length_sums(cpu, vals[view].contiguous())
+        dev = [x.to(cuda_device)[view] for x in lanes]
+        before = rl.launches
+        got = rl.run_length_sums(dev, vals.to(cuda_device)[view])
+        torch.cuda.synchronize()
+        assert rl.launches == before + 1
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(want, rl.run_length_sums_plain(cpu, vals[view]))
 
 
 @pytest.mark.cuda
@@ -131,9 +176,26 @@ def test_count_batch_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-def test_mesh_stream_matches_cpu(cuda_device):
-    rng = np.random.default_rng(2)
-    k, B, L = 31, 64, 100
+@pytest.mark.parametrize("W", [3, 4, 6])
+def test_count_batch_wide_matches_cpu(cuda_device, W):
+    rng = np.random.default_rng(W)
+    words = rng.integers(0, 4, (40000, W)).astype(np.int64)
+    words[:, 0] |= 0x80000000
+    words[:500] = 0xFFFFFFFF
+    good = rng.random(40000) < 0.9
+    cols = [torch.from_numpy(words[:, w].copy()) for w in range(W)]
+    want = ds.count_batch(cols, torch.from_numpy(good), min_count=2)
+    got = ds.count_batch([c.to(cuda_device) for c in cols],
+                         torch.from_numpy(good).to(cuda_device), min_count=2)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 63, 95])
+def test_mesh_stream_matches_cpu(cuda_device, k):
+    rng = np.random.default_rng(2 + k)
+    B, L = 64, k + 69
     genome = rng.integers(0, 4, 3000).astype(np.uint8)
     NW = L - k + 1
     spectra = [MeshStreamingSpectrum(make_mesh(1, dev), k, capacity=3000,
@@ -158,12 +220,88 @@ def test_mesh_stream_matches_cpu(cuda_device):
         np.testing.assert_allclose(dev[2], cpu[2], rtol=0, atol=1e-6 * w_in)
     assert spectra[1].drains >= 2
     assert spectra[1].purged_singletons == spectra[0].purged_singletons > 0
-    assert spectra[1].table_keys.device.type == "cuda"
+    assert all(x.device.type == "cuda" for x in spectra[1].table_lanes)
     for codes, good, lengths in batches:
         want = np.ones_like(good)
         assert np.array_equal(
             spectra[0].lookup_batch(codes, want, lengths, min_count=2),
             spectra[1].lookup_batch(codes, want, lengths, min_count=2))
+
+
+def _purge_table(rng, k, n_sources=40):
+    """A host table of sources (counts 600-5000), hamming-1 and -2 variants
+    of them (some deep enough to be sources in turn) and noise: keys [M, W]
+    u32, counts [M] i32."""
+    W = tk.nwords(k)
+    codes = rng.integers(0, 4, (n_sources + 300, k), dtype=np.uint8)
+    words = np.stack([tk.pack16(np, codes)[:, 16 * w] for w in range(W)], -1)
+    words[:, W - 1] &= np.uint32(tk.last_word_mask(k))
+    table = {}
+    for i, sw in enumerate(words):
+        row = sw[None, :]
+        rc = tk.revcomp_words(np, row, k)
+        row = rc if tk.words_less(np, rc, row)[0] else row
+        table[row.tobytes()] = (int(rng.integers(600, 5000))
+                                if i < n_sources else int(rng.integers(2, 60)))
+        if i >= n_sources:
+            continue
+        for v in range(8):
+            mut = row.copy()
+            for p in rng.choice(k, 1 + v % 2, replace=False):
+                w, o = divmod(int(p), 16)
+                shift = np.uint32(30 - 2 * o)
+                mut[0, w] = ((mut[0, w] & ~(np.uint32(3) << shift))
+                             | (np.uint32(rng.integers(0, 4)) << shift))
+            rc = tk.revcomp_words(np, mut, k)
+            mut = rc if tk.words_less(np, rc, mut)[0] else mut
+            table.setdefault(mut.tobytes(), int(rng.integers(600, 900))
+                             if v == 0 else int(rng.integers(2, 60)))
+    keys = np.frombuffer(b"".join(table), np.uint32).reshape(-1, W)
+    return keys, np.array(list(table.values()), np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,ed", [(21, 2), (31, 1), (33, 2), (95, 1)])
+def test_purge_matches_cpu(cuda_device, k, ed):
+    """set_table, purge_min_depth and purge_variants_mesh on the card: the
+    purged count and the table bit-equal to the same on the CPU, with
+    weights that are not the counts and chunks of a few sources."""
+    rng = np.random.default_rng(k + ed)
+    keys, counts = _purge_table(rng, k)
+    weights = (counts * rng.uniform(0.5, 1.0, len(counts))).astype(np.float32)
+    out = []
+    for dev in ("cpu", cuda_device):
+        sp = MeshStreamingSpectrum(make_mesh(1, dev), k, capacity=1 << 14)
+        sp.set_table(keys, counts, weights)
+        sp.purge_min_depth(3)
+        n = sp.purge_variants_mesh(2.5, ed, 400.0, min_depth=2,
+                                   chunk_rows=4 * k * 7)
+        out.append((n, sp.to_numpy_tables(), dict(sp.purge_stats)))
+    assert out[0][0] == out[1][0] > 0
+    assert out[0][2] == out[1][2]
+    for a, b in zip(out[0][1], out[1][1]):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_purge_thresholds_match_cpu(cuda_device):
+    """The float32 threshold steps on the card: the square root (numpy's,
+    correctly rounded), the once-rounded v - sqrt(v) * s and the reciprocal
+    multiply give the CPU's bits (torch.sqrt of these float32 values on
+    the card and on the CPU need not agree)."""
+    rng = np.random.default_rng(4)
+    v = torch.from_numpy((rng.random(1 << 22) * 1e6).astype(np.float32))
+    assert torch.equal(mst._sqrt_f32(v.to(cuda_device)).cpu(),
+                       torch.from_numpy(np.sqrt(v.numpy())))
+    for s in (2.0, 2.5, 3.1):
+        outs = []
+        for dev in ("cpu", cuda_device):
+            x = v.to(dev)
+            thr = mst._fma_sub_f32(x, mst._sqrt_f32(x), mst._f32(s, dev))
+            outs.append([thr.cpu()] + [(thr * mst._recip_f32(c, dev)).cpu()
+                                       for c in (20, 21)])
+        for a, b in zip(*outs):
+            assert torch.equal(a, b)
 
 
 def _sort_case(name, n, rng):

@@ -231,7 +231,6 @@ def test_streaming_mesh_weights_reach_output(tmp_path, metagenome):
     (["--mesh", "1", "--distributed", "127.0.0.1:1"], "D > 1"),
     (["--mesh", "1", "--nprocs", "2"], "D > 1"),
     (["--mesh", "1", "--gathered-logs", "1"], "D > 1"),
-    (["--mesh", "1", "--variant-sigmas", "2"], "later PR"),
 ])
 def test_refused_flags(tmp_path, argv, match):
     inp = str(tmp_path / "in.fastq")
@@ -242,11 +241,14 @@ def test_refused_flags(tmp_path, argv, match):
 
 
 def test_wide_k_refused(tmp_path):
+    """k = 97 is past the port's 3-lane keys on both --mesh 1 paths (k up
+    to 96 runs: tests/test_torch_wide_keys.py)."""
     inp = str(tmp_path / "in.fastq")
     _graft_input(inp)
-    with pytest.raises(NotImplementedError, match="later PR"):
-        torch_app.run(["--device", "cpu", "--mesh", "1", "--out",
-                       str(tmp_path / "o")] + BASE + ["33", inp])
+    for extra in (["--mesh", "1"], ["--streaming", "--mesh", "1"]):
+        with pytest.raises(NotImplementedError, match="key layout"):
+            torch_app.run(["--device", "cpu"] + extra + ["--out",
+                           str(tmp_path / "o")] + BASE + ["97", inp])
 
 
 def test_seams_restored_and_cuda_without_card(tmp_path, monkeypatch):

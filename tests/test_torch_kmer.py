@@ -58,8 +58,14 @@ def test_lane_order_equals_unsigned_lexicographic(W):
 
 
 def test_wide_k_refused():
+    """Keys hold at most 3 lanes: k = 96 passes, k = 97 is refused; one
+    lane holds at most 2 words."""
     tk.check_k(32)
-    with pytest.raises(NotImplementedError, match="later PR"):
-        tk.check_k(33)
+    tk.check_k(33)
+    tk.check_k(96)
+    with pytest.raises(NotImplementedError, match="key layout"):
+        tk.check_k(97)
     with pytest.raises(NotImplementedError):
         tk.encode_lane([torch.zeros(1, dtype=torch.int64)] * 3)
+    with pytest.raises(NotImplementedError):
+        tk.encode_lanes([torch.zeros(1, dtype=torch.int64)] * 7)

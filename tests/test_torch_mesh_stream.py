@@ -2,13 +2,15 @@
 make_mesh(1): the same batches go through both.
 
 Tolerances: keys, counts, purge totals and lookup counts are bit-equal.
-Weights agree to 1e-6 x the total weight of the drain's input: both drains
-take run weights as differences of a float32 prefix sum over the whole
-drain (mesh_stream.py:172-177), but the sums round in another order (XLA's
-scan against torch's cumsum, and equal keys sorted in another order), so
-each run weight may differ by a few float32 ulps of that total.
+Weights agree to 1e-6 x the total weight of the drain's input: the JAX
+drain takes run weights as differences of a float32 prefix sum over the
+whole drain (mesh_stream.py:172-177), the port as differences of a float64
+one, rounded to float32, so each JAX run weight may be off by a few
+float32 ulps of that total. The port's are held to float64 sums past the
+float32 prefix's edge, and its counts to int64 sums past the int32 one.
 """
 import numpy as np
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -151,5 +153,95 @@ def test_wire_packing_and_unpack():
 def test_one_device_only():
     with pytest.raises(NotImplementedError, match="D > 1"):
         make_mesh(2, "cpu")
+    # keys of at most 3 lanes: k = 96 is the widest table
+    ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 96, capacity=16)
     with pytest.raises(NotImplementedError):
-        ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 33, capacity=16)
+        ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 97, capacity=16)
+
+
+def _drain_counts(table_keys, table_counts, staged_keys, cap=8):
+    """The port's drain of a table (from_numpy_tables) and staged rows of
+    count 1, at k = 32: keys are (0, key) word pairs. Returns {key: count}
+    of the table after the drain."""
+    sp = ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 32, capacity=cap)
+    cols = np.full((2, 1, cap), 0xFFFFFFFF, np.uint32)
+    cols[0, 0, :len(table_keys)] = 0
+    cols[1, 0, :len(table_keys)] = table_keys
+    counts = np.zeros((1, cap), np.int32)
+    counts[0, :len(table_keys)] = table_counts
+    sp.from_numpy_tables(cols, counts, np.zeros((1, cap), np.float32))
+    lanes = ms.encode_lanes([torch.zeros(len(staged_keys), dtype=torch.int64),
+                             torch.tensor(staged_keys, dtype=torch.int64)])
+    sp._staged.append((lanes, torch.ones(len(staged_keys))))
+    sp._staged_rows += len(staged_keys)
+    sp._drain()
+    planes, cnt, _ = sp.to_numpy_tables()
+    real = cnt[0] != 0
+    assert (planes[0, 0, real] == 0).all()
+    return dict(zip(planes[1, 0, real].tolist(), cnt[0, real].tolist()))
+
+
+def test_drain_past_the_int32_prefix_edge():
+    """Queue 3g: counts in one drain that sum past 2^31 - 1 (table counts
+    2^30, 2^30, 3, 4 for keys 5-8, staged rows 8, 9, 9, 5). The JAX drain's
+    int32 prefix scan wraps there and loses key 5; the port's run sums are
+    per run, held here to an int64 numpy count, not to the JAX drain."""
+    table_keys = np.array([5, 6, 7, 8])
+    table_counts = np.array([1 << 30, 1 << 30, 3, 4], np.int64)
+    staged = np.array([8, 9, 9, 5])
+    want = {}
+    for key, c in zip(table_keys.tolist(), table_counts.tolist()):
+        want[key] = want.get(key, 0) + c
+    for key in staged.tolist():
+        want[key] = want.get(key, 0) + 1
+    assert sum(want.values()) > (1 << 31) - 1
+    assert _drain_counts(table_keys, table_counts, staged) == want
+    # the port's own limit: a single key's count past 2^31 - 1 wraps its
+    # int32 table count negative, and the drain then drops the key
+    got = _drain_counts(np.array([5, 6]), np.array([(1 << 31) - 1, 3]),
+                        np.array([5, 6]))
+    assert got == {6: 4}
+
+
+def test_drain_weights_past_the_float32_prefix_edge():
+    """Run weights once the drain's total weight passes 2^23, where a
+    float32 ulp is 1: a first key of weight 2^24, then 40 keys of 1-3 rows
+    of weight 0.3 each. The port's run weights are the float64 sums rounded
+    to float32; the JAX drain differences a float32 prefix there, so its
+    small runs come out as whole numbers (shown here on its `_drain_fn`)."""
+    from kmernator_tpu.parallel.mesh_stream import _drain_fn
+    rng = np.random.default_rng(12)
+    keys = np.concatenate([[1], np.repeat(np.arange(2, 42),
+                                          rng.integers(1, 4, 40))])
+    w = np.full(len(keys), 0.3, np.float32)
+    w[0] = 2.0 ** 24
+    want = {}
+    for key, x in zip(keys.tolist(), w.astype(np.float64).tolist()):
+        want[key] = want.get(key, 0.0) + x
+    cap, R = 64, 64 + len(keys)
+    sp = ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 32, capacity=cap)
+    perm = rng.permutation(len(keys))
+    lanes = ms.encode_lanes([torch.zeros(len(keys), dtype=torch.int64),
+                             torch.from_numpy(keys[perm])])
+    sp._staged.append((lanes, torch.from_numpy(w[perm])))
+    sp._staged_rows += len(keys)
+    sp._drain()
+    planes, counts, weights = sp.to_numpy_tables()
+    real = counts[0] > 0
+    got = dict(zip(planes[1, 0, real].tolist(), weights[0, real].tolist()))
+    assert got == {key: float(np.float32(x)) for key, x in want.items()}
+    # the JAX drain on the same rows (table of sentinels + staged)
+    cols = np.full((2, 1, R), 0xFFFFFFFF, np.uint32)
+    cols[0, 0, cap:] = 0
+    cols[1, 0, cap:] = keys[perm]
+    cnt = np.concatenate([np.zeros(cap, np.int32),
+                          np.ones(len(keys), np.int32)])[None, :]
+    wts = np.concatenate([np.zeros(cap, np.float32), w[perm]])[None, :]
+    out = _drain_fn(jax_make_mesh(1), 2, cap, R)(
+        *[jnp.asarray(c) for c in cols], jnp.asarray(cnt), jnp.asarray(wts))
+    jw = np.asarray(out[3])[0, :len(want)]
+    assert np.array_equal(np.asarray(out[1])[0, :len(want)],
+                          np.array(sorted(want)))
+    err = np.abs(jw.astype(np.float64)
+                 - np.array([want[key] for key in sorted(want)]))
+    assert err[1:].max() >= 0.3 and (jw[1:] == np.round(jw[1:])).all()

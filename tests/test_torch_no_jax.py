@@ -1,6 +1,8 @@
 """kmernator_tpu_torch imports neither jax nor the JAX package: a fresh
 interpreter imports every module of the port and runs the port's CLI on
-its three engines (host, --mesh 1, --streaming --mesh 1) on the CPU, then
+its three engines (host, --mesh 1, --streaming --mesh 1) on the CPU, the
+in-memory --mesh 1 with the on-device variant purge, and both --mesh 1
+paths at k = 33, then
 checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
 loaded. And no source file of the port names the JAX package in an
 import, lazy ones inside functions included."""
@@ -30,9 +32,14 @@ with open(os.path.join(d, "in.fastq"), "wb") as f:
                 % (i, acgt[genome[s:s + 72]].tobytes(), b"H" * 72))
 base = ["--device", "cpu", "--min-read-length", "25"]
 inp = os.path.join(d, "in.fastq")
-for name, extra in (("h", []), ("m", ["--mesh", "1"]),
-                    ("s", ["--streaming", "--mesh", "1"])):
-    assert run(base + extra + ["--out", os.path.join(d, name), "31",
+for name, extra, k in (
+        ("h", [], "31"), ("m", ["--mesh", "1"], "31"),
+        ("s", ["--streaming", "--mesh", "1"], "31"),
+        ("v", ["--mesh", "1", "--variant-sigmas", "2",
+               "--min-variant-kmer-depth", "3"], "31"),
+        ("w", ["--mesh", "1"], "33"),
+        ("x", ["--streaming", "--mesh", "1"], "33")):
+    assert run(base + extra + ["--out", os.path.join(d, name), k,
                                inp]) == 0
     assert os.path.getsize(os.path.join(d, name + "-MinDepth2-in.fastq")) > 0
 bad = sorted(m for m in sys.modules
