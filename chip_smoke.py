@@ -44,7 +44,14 @@ started together) and drives the port's paths on the card:
      events) printed;
  10. k > 32: phase 5's input at k=33 and k=95 on the in-memory `--mesh 1`
      and at k=63 on `--streaming --mesh 1` (two- and three-lane keys),
-     each byte-identical to the host engine at the same k.
+     each byte-identical to the host engine at the same k;
+ 11. MeraculousCounter `--mesh 1` through its CLI entry point
+     (`kmernator_tpu_torch.apps.meraculous_counter.run`): phase 4's input at
+     k=21 (one-lane keys) and phase 5's at k=51 (two lanes), the mercount
+     and mergraph files byte-identical to the JAX package's MeraculousCounter
+     host engine (`python -m kmernator_tpu.apps.meraculous_counter`, no
+     mesh), 13 run-length launches a run, the device time of
+     `extension_spectrum_mesh` (CUDA events) and peak device memory.
 Phase 3 also holds the kernel's two- and three-lane instantiations
 (k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
 and times them beside the one-lane kernel.
@@ -452,6 +459,112 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
             "by_lanes": by_lanes, "port_s": t_port,
             "host_s": t_host, "reads": n_reads, "peak_gib": peak,
             "purge": purge}
+
+
+def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
+    """MeraculousCounter --mesh 1, the port in process on the card, against
+    the JAX package's host engine (a subprocess): mercount and mergraph
+    byte-identical, 13 run-length launches at the keys' lane count, the
+    device time of extension_spectrum_mesh from CUDA events around it, and
+    the port's host seconds in each of the app's steps."""
+    import kmernator_tpu_torch.apps.meraculous_counter as app
+    calls = []
+    stages = {}
+    plain = {n: getattr(app, n) for n in (
+        "load_reads", "pack_readset", "window_weights", "ragged_to_padded",
+        "extension_spectrum_mesh", "spectrum_from_device", "dump_counts",
+        "dump_graphs")}
+
+    def host_timed(step):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return plain[step](*a, **kw)
+            finally:
+                stages[step] = (stages.get(step, 0.0)
+                                + time.perf_counter() - t0)
+        return call
+
+    def device_timed(mesh, k_, codes, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = host_timed("extension_spectrum_mesh")(mesh, k_, codes, *a,
+                                                    **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        calls.append({"device_ms": ev[0].elapsed_time(ev[1]),
+                      "windows": codes.shape[0] * (codes.shape[1] - k_ + 1),
+                      "kmers": out[1].numel(), "on": str(codes.device)})
+        return out
+
+    port_out = os.path.join(WORK, name + "-port")
+    host_out = os.path.join(WORK, name + "-host")
+    for step in plain:
+        setattr(app, step, host_timed(step))
+    app.extension_spectrum_mesh = device_timed
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        rl.launches = 0
+        before = dict(rl.launches_by_lanes)
+        t0 = time.perf_counter()
+        rc = app.run(["--device", "cuda", "--mesh", "1", "--kmer-size",
+                      str(k), "--out", port_out, fq])
+        torch.cuda.synchronize()
+        t_port = time.perf_counter() - t0
+        launches = rl.launches
+        by_lanes = {n: rl.launches_by_lanes[n] - before[n] for n in before}
+    finally:
+        for step, fn in plain.items():
+            setattr(app, step, fn)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rc != 0:
+        raise SystemExit("%s: port MeraculousCounter exited %d" % (name, rc))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "kmernator_tpu.apps.meraculous_counter",
+                           "--kmer-size", str(k), "--out", host_out, fq],
+                          env=env_with_root(), capture_output=True, text=True)
+    t_host = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit("%s: the host engine exited %d:\n%s"
+                         % (name, proc.returncode, proc.stderr[-3000:]))
+    mine, want = outputs(port_out), outputs(host_out)
+    suffixes = {".mercount.m%d" % k, ".mergraph.m%d.D2" % k}
+    if set(want) != suffixes or set(mine) != suffixes:
+        raise SystemExit("%s: output files %s and %s, expected %s"
+                         % (name, sorted(mine), sorted(want), suffixes))
+    sizes = {}
+    for suffix in sorted(suffixes):
+        with open(mine[suffix], "rb") as a, open(want[suffix], "rb") as b:
+            data = a.read()
+            if data != b.read():
+                raise SystemExit("%s: %s differs from the host engine"
+                                 % (name, suffix))
+        sizes[suffix] = (len(data), data.count(b"\n"))
+        del data
+    lanes = (k + 31) // 32
+    if (len(calls) != 1 or calls[0]["on"] != "cuda:0" or launches != 13
+            or by_lanes[lanes] != 13):
+        raise SystemExit("%s: expected one extension_spectrum_mesh call on "
+                         "the card and 13 run-length launches at %d lanes; "
+                         "got %s and %s" % (name, lanes, calls, by_lanes))
+    call = calls[0]
+    log("%s: byte-identical (%s); k=%d (%d-lane keys), run_length launches "
+        "%d %s; %d windows, %d distinct k-mers; extension_spectrum_mesh "
+        "%.1f ms of device time (CUDA events); peak device memory %.2f GiB"
+        % (name, ", ".join("%s %d B, %d lines" % (x, *sizes[x])
+                           for x in sorted(sizes)), k, lanes, launches,
+           by_lanes, call["windows"], call["kmers"], call["device_ms"], peak))
+    log("%s: port %.2f s = %.0f reads/s; host engine %.2f s = %.0f reads/s"
+        % (name, t_port, n_reads / t_port, t_host, n_reads / t_host))
+    log("%s: the port's host seconds by step: %s; the rest %.2f s"
+        % (name, ", ".join("%s %.2f" % x for x in stages.items()),
+           t_port - sum(stages.values())))
+    for path in list(mine.values()) + list(want.values()):
+        os.remove(path)
+    return {"name": name, "k": k, "launches": launches,
+            "by_lanes": by_lanes, "port_s": t_port, "host_s": t_host,
+            "reads": n_reads, "peak_gib": peak, "stages_s": stages, **call}
 
 
 def count_codes(seed: int = 11):
@@ -946,7 +1059,7 @@ def main() -> int:
     fq = os.path.join(WORK, "meta256.fastq")
     n = generate(fq, "6")
     runs = [phase_app("streaming", fq, n, rl, {})]
-    os.remove(fq)
+    fq256, n256 = fq, n
     log("phase 4 streaming slice ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
@@ -988,10 +1101,17 @@ def main() -> int:
             phase_app("wide-k63-streaming", fq32, n32, rl, in_memory, k=63,
                       port_args=["--streaming"]),
             phase_app("wide-k95", fq32, n32, rl, in_memory, k=95)]
-    os.remove(fq32)
     log("phase 10 k > 32 ok [%.1f s]" % (time.perf_counter() - t0))
-    runs += [purge_run] + wide
-    launches += sum(r["launches"] for r in [purge_run] + wide)
+
+    t0 = time.perf_counter()
+    mer = [phase_meraculous("meraculous-k21", fq256, n256, rl, 21),
+           phase_meraculous("meraculous-k51", fq32, n32, rl, 51)]
+    os.remove(fq256)
+    os.remove(fq32)
+    log("phase 11 MeraculousCounter --mesh 1 ok [%.1f s]"
+        % (time.perf_counter() - t0))
+    runs += [purge_run] + wide + mer
+    launches += sum(r["launches"] for r in [purge_run] + wide + mer)
     by_lanes = {L: sum(r["by_lanes"][L] for r in runs) for L in (1, 2, 3)}
     by_lanes[1] += count["run_length"]
     if min(by_lanes.values()) <= 0:
@@ -1009,8 +1129,9 @@ def main() -> int:
     r = hs["real"]
     log("earlier designs (recorded, not run here): %s"
         % json.dumps(PREV_MS))
-    log("FilterReads runs: %s" % json.dumps({r["name"]: {
-        key: v for key, v in r.items() if key != "name"} for r in runs}))
+    log("FilterReads and MeraculousCounter runs: %s" % json.dumps({
+        r["name"]: {key: v for key, v in r.items() if key != "name"}
+        for r in runs}))
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",

@@ -488,3 +488,48 @@ def test_hash_bench_on_the_card(cuda_device):
     r = hi.bench(device="cuda", steps=4)
     assert hi.launches == before + 1 + 2 * 4
     assert r["unique0"] > 0 and r["mkeys_per_s"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 2, 3])
+def test_count_received_ext_matches_cpu(cuda_device, L):
+    """MeraculousCounter's run sums on the card: 13 launches of the
+    run-length kernel at L lanes, equal to the CPU's plain run sums."""
+    from kmernator_tpu_torch.parallel.mesh import count_received_ext
+    rng = np.random.default_rng(40 + L)
+    n = 200_003
+    lanes = _sorted_lane_keys(rng, n, L, 30_000)
+    perm = torch.from_numpy(rng.permutation(n))
+    lanes = [x[perm].contiguous() for x in lanes]      # arrival order
+    good = torch.from_numpy(rng.random(n) < 0.9)
+    el = torch.from_numpy(rng.integers(-1, 6, n).astype(np.int32))
+    er = torch.from_numpy(rng.integers(-1, 6, n).astype(np.int32))
+    want = count_received_ext(lanes, good, el, er, 2)
+    before = dict(rl.launches_by_lanes)
+    got = count_received_ext([x.to(cuda_device) for x in lanes],
+                             good.to(cuda_device), el.to(cuda_device),
+                             er.to(cuda_device), 2)
+    torch.cuda.synchronize()
+    assert rl.launches_by_lanes[L] == before[L] + 13
+    assert want[1].numel() > 1000
+    for a, b in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 51])
+def test_window_extensions_device_matches_cpu(cuda_device, k):
+    from kmernator_tpu_torch.parallel.mesh import window_extensions_device
+    rng = np.random.default_rng(k)
+    B, L = 500, 150
+    codes = torch.from_numpy(rng.integers(0, 4, (B, L)).astype(np.uint8))
+    lengths = torch.from_numpy(rng.integers(1, L + 1, B).astype(np.int32))
+    is_fwd = torch.from_numpy(rng.random((B, L - k + 1)) < 0.5)
+    ext_ok = torch.from_numpy(rng.random((B, L)) < 0.7)
+    want = window_extensions_device(codes, lengths, is_fwd, ext_ok, k)
+    got = window_extensions_device(codes.to(cuda_device),
+                                   lengths.to(cuda_device),
+                                   is_fwd.to(cuda_device),
+                                   ext_ok.to(cuda_device), k)
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)

@@ -1,8 +1,9 @@
 """kmernator_tpu_torch imports neither jax nor the JAX package: a fresh
-interpreter imports every module of the port and runs the port's CLI on
-its three engines (host, --mesh 1, --streaming --mesh 1) on the CPU, the
-in-memory --mesh 1 with the on-device variant purge, and both --mesh 1
-paths at k = 33, then
+interpreter imports every module of the port and runs the port's
+FilterReads CLI on its three engines (host, --mesh 1, --streaming --mesh
+1) on the CPU, the in-memory --mesh 1 with the on-device variant purge,
+and both --mesh 1 paths at k = 33, and the MeraculousCounter CLI on its
+three engines (host, --streaming, --mesh 1), then
 checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
 loaded. And no source file of the port names the JAX package in an
 import, lazy ones inside functions included."""
@@ -42,6 +43,13 @@ for name, extra, k in (
     assert run(base + extra + ["--out", os.path.join(d, name), k,
                                inp]) == 0
     assert os.path.getsize(os.path.join(d, name + "-MinDepth2-in.fastq")) > 0
+from kmernator_tpu_torch.apps.meraculous_counter import run as mer_run
+for name, extra in (("mh", []), ("ms", ["--streaming"]),
+                    ("mm", ["--mesh", "1"])):
+    assert mer_run(["--device", "cpu"] + extra + [
+        "--kmer-size", "21", "--out", os.path.join(d, name), inp]) == 0
+    for suffix in (".mercount.m21", ".mergraph.m21.D2"):
+        assert os.path.getsize(os.path.join(d, name + suffix)) > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "kmernator_tpu"))
 print("JAX_MODULES", bad)
@@ -70,6 +78,9 @@ def test_no_source_imports_the_jax_package():
     for root, _, files in os.walk(os.path.join(REPO, "kmernator_tpu_torch")):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(sources) > 20
+    for new in ("apps/meraculous_counter.py", "ops/extensions.py",
+                "parallel/mesh.py"):
+        assert os.path.join(REPO, "kmernator_tpu_torch", new) in sources
     found = []
     for path in sources:
         with open(path) as f:
