@@ -51,7 +51,18 @@ started together) and drives the port's paths on the card:
      and mergraph files byte-identical to the JAX package's MeraculousCounter
      host engine (`python -m kmernator_tpu.apps.meraculous_counter`, no
      mesh), 13 run-length launches a run, the device time of
-     `extension_spectrum_mesh` (CUDA events) and peak device memory.
+     `extension_spectrum_mesh` (CUDA events) and peak device memory;
+ 12. the nucleating assembler `--mesh 1` through its CLI entry point
+     (`kmernator_tpu_torch.apps.nucleating_assembler.run`), whose read
+     index is built and queried on the card (parallel/dist_match.py, no
+     kernel of csrc/): phase 4's input at k=31 with 50 seeds and phase 5's
+     at k=45 (two-lane keys) with 25, each seed the first 100 bp of a read
+     drawn with numpy, 5 iterations; the contigs byte-identical to the JAX
+     package's host engine (`python -m
+     kmernator_tpu.apps.nucleating_assembler`, its k-mer read index), the
+     index's rows, each match's queries and hits, the device time of the
+     build and of each match (CUDA events), peak device memory and the
+     port's host seconds by step.
 Phase 3 also holds the kernel's two- and three-lane instantiations
 (k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
 and times them beside the one-lane kernel.
@@ -90,6 +101,7 @@ BLOCK, CHUNK = 1 << 17, 1 << 15       # merge_sort_2key's defaults
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 SOURCES = ("run_length", "merge_sort", "hash_insert")
 HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
+ASM_ITERATIONS = 5
 K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
 # the earlier designs' times, from this script on an NVIDIA H100 80GB HBM3 at
 # 700.00 W: the bitonic local sort, the hash with separate key and count
@@ -565,6 +577,166 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
     return {"name": name, "k": k, "launches": launches,
             "by_lanes": by_lanes, "port_s": t_port, "host_s": t_host,
             "reads": n_reads, "peak_gib": peak, "stages_s": stages, **call}
+
+
+def draw_seeds(fq: str, n_reads: int, path: str, n_seeds: int,
+               length: int = 100) -> None:
+    """The assembler's seeds: the first `length` bases of n_seeds reads of
+    the FASTQ, drawn with numpy.random.default_rng(3), as FASTA."""
+    pick = np.random.default_rng(3).choice(n_reads, n_seeds, replace=False)
+    slot = {int(r): i for i, r in enumerate(pick)}
+    seqs = {}
+    with open(fq, "rb") as f:
+        for j, line in enumerate(f):
+            if j % 4 == 1 and j // 4 in slot:
+                seqs[slot[j // 4]] = line.strip()[:length]
+    with open(path, "wb") as f:
+        for i in range(n_seeds):
+            f.write(b">seed%d\n%s\n" % (i, seqs[i]))
+
+
+def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
+                    n_seeds: int, iterations: int):
+    """The nucleating assembler --mesh 1, the port in process on the card,
+    against the JAX package's host engine (its k-mer read index, no mesh; a
+    subprocess): the contig files byte-identical, the read index built once
+    on the card, one match a iteration, no kernel launched. Prints the
+    index's rows and distinct keys, queries and hits a iteration, the
+    device time of the index build and of each match (CUDA events), peak
+    device memory, both wall times, and the port's host seconds by step."""
+    import kmernator_tpu_torch.apps.nucleating_assembler as app
+    from kmernator_tpu_torch.parallel import dist_match as dm
+    seeds = os.path.join(WORK, name + "-seeds.fa")
+    draw_seeds(fq, n_reads, seeds, n_seeds)
+    stages, builds, matches = {}, [], []
+    steps = {app: ("load_reads", "ArtifactFilter", "apply_artifact_filter",
+                   "screen_pools", "extend_contigs", "write_fasta"),
+             dm: ("pack_readset", "window_weights", "good_kmer_mask",
+                  "ragged_to_padded", "mesh_match_pools")}
+    plain = {(mod, n): getattr(mod, n) for mod, names in steps.items()
+             for n in names}
+    plain_build, plain_match = dm.build_index, dm.match
+
+    def host_timed(mod, step):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return plain[(mod, step)](*a, **kw)
+            finally:
+                stages[step] = (stages.get(step, 0.0)
+                                + time.perf_counter() - t0)
+        return call
+
+    def index_summary(out):
+        lanes, rid = out
+        distinct = 0
+        if rid.numel():
+            neq = lanes[0][1:] != lanes[0][:-1]
+            for lane in lanes[1:]:
+                neq |= lane[1:] != lane[:-1]
+            distinct = 1 + int(neq.sum())
+        return {"rows": rid.numel(), "distinct": distinct,
+                "lanes": len(lanes), "on": str(rid.device)}
+
+    def match_summary(ids):
+        return {"queries": ids.shape[0], "hits": int((ids >= 0).sum()),
+                "on": str(ids.device)}
+
+    def device_timed(fn, record, summary, step):
+        def call(*a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = fn(*a, **kw)
+            ev[1].record()
+            torch.cuda.synchronize()
+            stages[step] = stages.get(step, 0.0) + time.perf_counter() - t0
+            record.append({"device_ms": ev[0].elapsed_time(ev[1]),
+                           **summary(out)})
+            return out
+        return call
+
+    port_out = os.path.join(WORK, name + "-port.fa")
+    host_out = os.path.join(WORK, name + "-host.fa")
+    for mod, step in plain:
+        setattr(mod, step, host_timed(mod, step))
+    dm.build_index = device_timed(plain_build, builds, index_summary,
+                                  "build_index")
+    dm.match = device_timed(plain_match, matches, match_summary,
+                            "match (in mesh_match_pools)")
+    torch.cuda.reset_peak_memory_stats()
+    counters = (rl.launches, dict(ms.launches), hi.launches)
+    try:
+        t0 = time.perf_counter()
+        rc = app.run(["--device", "cuda", "--mesh", "1", "--contig-file",
+                      seeds, "--max-iterations", str(iterations), "--out",
+                      port_out, str(k), fq])
+        torch.cuda.synchronize()
+        t_port = time.perf_counter() - t0
+    finally:
+        for (mod, step), fn in plain.items():
+            setattr(mod, step, fn)
+        dm.build_index, dm.match = plain_build, plain_match
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if rc != 0:
+        raise SystemExit("%s: the port's assembler exited %d" % (name, rc))
+    if (rl.launches, dict(ms.launches), hi.launches) != counters:
+        raise SystemExit("%s: the assembler's path launched a kernel" % name)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "kmernator_tpu.apps.nucleating_assembler",
+                           "--contig-file", seeds, "--max-iterations",
+                           str(iterations), "--out", host_out, str(k), fq],
+                          env=env_with_root(), capture_output=True, text=True)
+    t_host = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit("%s: the host engine exited %d:\n%s"
+                         % (name, proc.returncode, proc.stderr[-3000:]))
+    mine, want = outputs(port_out), outputs(host_out)
+    if "" not in want or set(mine) != set(want):
+        raise SystemExit("%s: output files differ: %s vs %s"
+                         % (name, sorted(mine), sorted(want)))
+    for suffix in want:     # the contigs, and each iteration's checkpoint
+        with open(mine[suffix], "rb") as a, open(want[suffix], "rb") as b:
+            if a.read() != b.read():
+                raise SystemExit("%s: %s differs from the host engine's"
+                                 % (name, suffix or "the contig file"))
+    with open(mine[""], "rb") as f:
+        lines = f.read().split()
+    lengths = [len(x) for x in lines[1::2]]
+    grew = sum(b"-l" in x for x in lines[0::2])
+    if len(lengths) != n_seeds or not grew:
+        raise SystemExit("%s: %d contigs, %d grew" % (name, len(lengths),
+                                                      grew))
+    on = {x["on"] for x in builds + matches}
+    if len(builds) != 1 or not matches or on != {"cuda:0"}:
+        raise SystemExit("%s: expected one index build and the matches on "
+                         "the card; got %s and %s" % (name, builds, matches))
+    index = builds[0]
+    log("%s: byte-identical (%d files; %d contigs, %d grew, longest %d "
+        "bp); k=%d (%d-lane keys); index %d rows, %d distinct keys; build "
+        "%.1f ms of device time (CUDA events); no kernel launched; peak "
+        "device memory %.2f GiB"
+        % (name, len(want), len(lengths), grew, max(lengths), k,
+           index["lanes"], index["rows"], index["distinct"],
+           index["device_ms"], peak))
+    log("%s: matches (queries, hits, device ms): %s"
+        % (name, ", ".join("%d: %d, %d, %.2f" % (i + 1, m["queries"],
+                                                 m["hits"], m["device_ms"])
+                           for i, m in enumerate(matches))))
+    log("%s: port %.2f s; host engine %.2f s (%.2fx)"
+        % (name, t_port, t_host, t_host / t_port))
+    nested = stages["match (in mesh_match_pools)"]
+    log("%s: the port's host seconds by step: %s; the rest %.2f s"
+        % (name, ", ".join("%s %.2f" % x for x in stages.items()),
+           t_port - sum(stages.values()) + nested))
+    for path in [seeds] + list(mine.values()) + list(want.values()):
+        os.remove(path)
+    torch.cuda.empty_cache()
+    return {"name": name, "k": k, "seeds": n_seeds, "iterations": iterations,
+            "grew": grew, "port_s": t_port, "host_s": t_host,
+            "reads": n_reads, "peak_gib": peak, "index": index,
+            "matches": matches, "stages_s": stages}
 
 
 def count_codes(seed: int = 11):
@@ -1106,9 +1278,17 @@ def main() -> int:
     t0 = time.perf_counter()
     mer = [phase_meraculous("meraculous-k21", fq256, n256, rl, 21),
            phase_meraculous("meraculous-k51", fq32, n32, rl, 51)]
+    log("phase 11 MeraculousCounter --mesh 1 ok [%.1f s]"
+        % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    asm = [phase_assembler("asm-k31", fq256, n256, rl, ms, hi, 31, 50,
+                           ASM_ITERATIONS),
+           phase_assembler("asm-k45", fq32, n32, rl, ms, hi, 45, 25,
+                           ASM_ITERATIONS)]
     os.remove(fq256)
     os.remove(fq32)
-    log("phase 11 MeraculousCounter --mesh 1 ok [%.1f s]"
+    log("phase 12 nucleating assembler --mesh 1 ok [%.1f s]"
         % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer
     launches += sum(r["launches"] for r in [purge_run] + wide + mer)
@@ -1132,6 +1312,9 @@ def main() -> int:
     log("FilterReads and MeraculousCounter runs: %s" % json.dumps({
         r["name"]: {key: v for key, v in r.items() if key != "name"}
         for r in runs}))
+    log("assembler runs (no kernel launched): %s" % json.dumps({
+        r["name"]: {key: v for key, v in r.items() if key != "name"}
+        for r in asm}))
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",

@@ -175,6 +175,38 @@ def sort_lanes(lanes: List[torch.Tensor]):
     return [lane[perm] for lane in lanes], perm
 
 
+def search_lanes(table: List[torch.Tensor], queries: List[torch.Tensor],
+                 right: bool) -> torch.Tensor:
+    """Insertion points of the queries in a table sorted lexicographically
+    over L int64 lanes: the first row not below (right=False) or above
+    (right=True) each query, in [0, C]. One lane: torch.searchsorted. L > 1:
+    the JAX package's lexicographic binary search (its dist_match `search`
+    and mesh_stream lookup), ceil(log2 C) + 1 probes. An empty table puts
+    every query at 0."""
+    C = table[0].numel()
+    if C == 0:
+        return torch.zeros_like(queries[0])
+    if len(table) == 1:
+        return torch.searchsorted(table[0], queries[0], right=right)
+    lo = torch.zeros_like(queries[0])
+    hi = torch.full_like(queries[0], C)
+    for _ in range(int(np.ceil(np.log2(max(C, 2)))) + 1):
+        mid = (lo + hi) // 2
+        cmid = mid.clamp(0, C - 1)
+        less = torch.zeros_like(queries[0], dtype=torch.bool)
+        eq = torch.ones_like(less)
+        for t, q in zip(table, queries):
+            mk = t[cmid]
+            less |= eq & (mk < q)
+            eq &= mk == q
+        go_right = (less | eq) if right else less
+        lo = torch.where(go_right, mid + 1, lo)
+        hi = torch.where(go_right, hi, mid)
+    # a probe past convergence at lo = hi = C compares row C - 1 again and
+    # can step to C + 1 (the JAX search's tables end in sentinel rows)
+    return lo.clamp_(max=C)
+
+
 def is_sentinel(lanes: List[torch.Tensor]) -> torch.Tensor:
     """[N] bool: the key is the all-ones sentinel (every lane INT64_MAX)."""
     sent = lanes[0] == SENTINEL_LANE

@@ -14,8 +14,9 @@ the identity:
            singletons, each in key order, so the table stays sorted
            without the JAX package's two further sorts.
   lookup:  binary search of each window's key in the sorted table
-           (torch.searchsorted on one lane; for L > 1 lanes the JAX
-           package's lexicographic search, ceil(log2 cap) + 1 probes).
+           (device_spectrum.py `search_lanes`: torch.searchsorted on one
+           lane; for L > 1 lanes the JAX package's lexicographic search,
+           ceil(log2 cap) + 1 probes).
   purge:   the on-device variant purge (`purge_variants_mesh`, with
            `_shell_cols`, the purge rounds and `_apply_purge_fn` of the JAX
            module) and `purge_min_depth`, over the same table; `set_table`
@@ -60,7 +61,8 @@ from kmernator_tpu_torch.ops.kmer import (MASK32, SENTINEL_LANE, check_k,
                                           last_word_mask, nlanes, nwords,
                                           reverse_bases)
 from kmernator_tpu_torch.parallel.device_spectrum import (
-    _shift_left_cols, extract_canonical_cols, is_sentinel, sort_lanes)
+    _shift_left_cols, extract_canonical_cols, is_sentinel, search_lanes,
+    sort_lanes)
 from kmernator_tpu_torch.parallel.mesh import Mesh
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
@@ -321,29 +323,10 @@ class MeshStreamingSpectrum:
 
     def _search(self, lanes: List[torch.Tensor]):
         """(pos, hit) of each key in the sorted table: the first row not
-        below it (clamped to cap - 1) and whether that row holds it. One
-        lane: torch.searchsorted. L > 1: the JAX package's lexicographic
-        binary search, ceil(log2 cap) + 1 probes."""
+        below it (`search_lanes`, clamped to cap - 1) and whether that row
+        holds it."""
         tk = self.table_lanes
-        cap = self.cap
-        if self.L == 1:
-            pos = torch.searchsorted(tk[0], lanes[0]).clamp_(max=cap - 1)
-            return pos, tk[0][pos] == lanes[0]
-        probes = int(np.ceil(np.log2(max(cap, 2)))) + 1
-        lo = torch.zeros_like(lanes[0])
-        hi = torch.full_like(lanes[0], cap)
-        for _ in range(probes):
-            mid = (lo + hi) // 2
-            cmid = mid.clamp(0, cap - 1)
-            less = torch.zeros_like(lanes[0], dtype=torch.bool)
-            eq = torch.ones_like(less)
-            for j in range(self.L):
-                mk = tk[j][cmid]
-                less |= eq & (mk < lanes[j])
-                eq &= mk == lanes[j]
-            lo = torch.where(less, mid + 1, lo)
-            hi = torch.where(less, hi, mid)
-        pos = lo.clamp_(0, cap - 1)
+        pos = search_lanes(tk, lanes, right=False).clamp_(0, self.cap - 1)
         hit = tk[0][pos] == lanes[0]
         for j in range(1, self.L):
             hit &= tk[j][pos] == lanes[j]

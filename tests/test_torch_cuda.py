@@ -533,3 +533,63 @@ def test_window_extensions_device_matches_cpu(cuda_device, k):
                                    ext_ok.to(cuda_device), k)
     for a, b in zip(got, want):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 45])
+def test_read_index_and_match_match_cpu(cuda_device, k):
+    """The assembler's --mesh 1 read index and matcher on the card: the
+    sorted key lanes, the read ids and the [Q, max_ids] answers (hits,
+    runs cut at max_ids, runs under min_depth, misses) bit-equal to the
+    same functions on the CPU."""
+    from kmernator_tpu_torch.parallel import dist_match as dm
+    rng = np.random.default_rng(k)
+    B, L = 3000, 150
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - L, B)
+    codes = genome[starts[:, None] + np.arange(L)[None, :]]
+    lengths = rng.integers(k - 5, L + 1, B).astype(np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    good2d = rng.random((B, L - k + 1)) < 0.9
+    cpu = dm.build_index(make_mesh(1, "cpu"), k, torch.from_numpy(codes),
+                         torch.from_numpy(good2d), torch.from_numpy(lengths))
+    gpu = dm.build_index(make_mesh(1, "cuda"), k,
+                         torch.from_numpy(codes).to(cuda_device),
+                         torch.from_numpy(good2d).to(cuda_device),
+                         torch.from_numpy(lengths).to(cuda_device))
+    assert cpu[1].numel() > 100_000
+    for a, b in zip(gpu[0] + [gpu[1]], cpu[0] + [cpu[1]]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    pick = torch.from_numpy(rng.integers(0, cpu[1].numel(), 5000))
+    queries = [torch.cat([lane[pick], torch.from_numpy(rng.integers(
+        -(1 << 62), 1 << 62, 100))]) for lane in cpu[0]]
+    for max_ids, min_depth in ((64, 0), (4, 3)):
+        want = dm.match(cpu[0], cpu[1], queries, max_ids, min_depth)
+        got = dm.match(gpu[0], gpu[1], [q.to(cuda_device) for q in queries],
+                       max_ids, min_depth)
+        assert (want >= 0).sum() > 10_000 and (want[-100:] == -1).all()
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_assembler_device_flag_and_mesh_refusal(cuda_device, tmp_path):
+    """--device cuda with no visible GPU raises (a program with
+    CUDA_VISIBLE_DEVICES=""), and --mesh 2 is refused on the card."""
+    import os
+    import subprocess
+    import sys
+    from kmernator_tpu_torch.apps import nucleating_assembler as asm
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    seeds = str(tmp_path / "s.fa")
+    with open(seeds, "w") as f:
+        f.write(">s\nACGTACGTACGTACGTACGTACGTACGTACGTACGTACGT\n")
+    args = ["--contig-file", seeds, "--out", str(tmp_path / "o.fa")]
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=repo)
+    proc = subprocess.run(
+        [sys.executable, "-m", "kmernator_tpu_torch.apps.nucleating_assembler",
+         "--device", "cuda", "--mesh", "1"] + args + ["31", "missing.fq"],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    with pytest.raises(NotImplementedError, match="--mesh 2"):
+        asm.run(["--device", "cuda", "--mesh", "2"] + args
+                + ["31", "missing.fq"])

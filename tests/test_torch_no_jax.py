@@ -2,8 +2,10 @@
 interpreter imports every module of the port and runs the port's
 FilterReads CLI on its three engines (host, --mesh 1, --streaming --mesh
 1) on the CPU, the in-memory --mesh 1 with the on-device variant purge,
-and both --mesh 1 paths at k = 33, and the MeraculousCounter CLI on its
-three engines (host, --streaming, --mesh 1), then
+and both --mesh 1 paths at k = 33, the MeraculousCounter CLI on its
+three engines (host, --streaming, --mesh 1), the nucleating assembler on
+its three matchers (host, --kmer-size 0, --mesh 1) and the contig
+extender, then
 checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
 loaded. And no source file of the port names the JAX package in an
 import, lazy ones inside functions included."""
@@ -50,6 +52,24 @@ for name, extra in (("mh", []), ("ms", ["--streaming"]),
         "--kmer-size", "21", "--out", os.path.join(d, name), inp]) == 0
     for suffix in (".mercount.m21", ".mergraph.m21.D2"):
         assert os.path.getsize(os.path.join(d, name + suffix)) > 0
+from kmernator_tpu_torch.apps.nucleating_assembler import run as asm_run
+from kmernator_tpu_torch.apps.contig_extender import run as ext_run
+seeds = os.path.join(d, "seeds.fa")
+with open(seeds, "wb") as f:
+    for i in (5, 50):
+        f.write(b">s%d\n%s\n" % (i, acgt[genome[100 * i:100 * i + 60]]
+                                   .tobytes()))
+for name, extra, k in (("ah", [], "21"), ("av", [], "0"),
+                       ("am", ["--mesh", "1"], "21")):
+    out = os.path.join(d, name + ".fa")
+    assert asm_run(["--device", "cpu", "--contig-file", seeds,
+                    "--max-iterations", "2", "--out", out] + extra
+                   + [k, inp]) == 0
+    assert open(out, "rb").read().count(b">") == 2
+out = os.path.join(d, "ext.fa")
+assert ext_run(["--device", "cpu", "--contig-file", seeds, "--out", out,
+                "21", inp]) == 0
+assert open(out, "rb").read().count(b">") == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "kmernator_tpu"))
 print("JAX_MODULES", bad)
@@ -79,7 +99,10 @@ def test_no_source_imports_the_jax_package():
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(sources) > 20
     for new in ("apps/meraculous_counter.py", "ops/extensions.py",
-                "parallel/mesh.py"):
+                "parallel/mesh.py", "apps/nucleating_assembler.py",
+                "apps/contig_extender.py", "parallel/dist_match.py",
+                "ops/align.py", "ops/extend.py", "ops/match.py",
+                "ops/vmatch.py", "ops/external.py", "utils/timers.py"):
         assert os.path.join(REPO, "kmernator_tpu_torch", new) in sources
     found = []
     for path in sources:
