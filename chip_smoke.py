@@ -62,7 +62,17 @@ started together) and drives the port's paths on the card:
      kmernator_tpu.apps.nucleating_assembler`, its k-mer read index), the
      index's rows, each match's queries and hits, the device time of the
      build and of each match (CUDA events), peak device memory and the
-     port's host seconds by step.
+     port's host seconds by step;
+ 13. FilterReads `--streaming --distributed 127.0.0.1:<port> --nprocs 1`
+     (the one-process distributed engine: a table that starts at the
+     estimate / 6 and grows 4x on pressure, pass 2 looked up on the card):
+     phase 4's input at k=31 and phase 5's at k=63 (two-lane keys), each
+     byte-identical to that input's host-engine outputs from phase 4 or
+     10, the table grown at least once with no singleton purged, one
+     run-length launch a drain; the capacities, drains, pass 1 and pass 2
+     wall time, the lookups' device time (CUDA events), peak device memory,
+     the port's host seconds by step and reads/s beside the host engine
+     and `--streaming --mesh 1`.
 Phase 3 also holds the kernel's two- and three-lane instantiations
 (k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
 and times them beside the one-lane kernel.
@@ -363,19 +373,96 @@ def build_host_libraries() -> None:
         "native/io_native.cpp) in %.2f s" % (time.perf_counter() - t0))
 
 
+def timed_steps(steps, stages):
+    """Install host-clock timers on the functions `steps` names, (module,
+    name) pairs, adding each call's seconds (each item's, for a generator)
+    to stages[name]. Returns the originals, for `restore_steps`."""
+    import inspect
+    plain = {}
+
+    def timed(fn, step):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stages[step] = stages.get(step, 0.0) + (time.perf_counter()
+                                                        - t0)
+
+        def items(*a, **kw):
+            it = fn(*a, **kw)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    x = next(it)
+                except StopIteration:
+                    return
+                finally:
+                    stages[step] = stages.get(step, 0.0) + (
+                        time.perf_counter() - t0)
+                yield x
+        return items if inspect.isgeneratorfunction(fn) else call
+
+    for mod, step in steps:
+        plain[(mod, step)] = getattr(mod, step)
+        setattr(mod, step, timed(plain[(mod, step)], step))
+    return plain
+
+
+def restore_steps(plain):
+    for (mod, step), fn in plain.items():
+        setattr(mod, step, fn)
+
+
 def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
-              args=(), port_args=()):
+              args=(), port_args=(), host_from=None, keep_host=False,
+              steps=()):
     """Port (in-process, on the card) vs host engine (subprocess), both with
     `args` at k, the port with `port_args` too: outputs byte-identical, the
     kernel launched, the table on the card; with --variant-sigmas, the same
-    "Removed N" count, and the purge timed by CUDA events around it."""
+    "Removed N" count, and the purge timed by CUDA events around it.
+    host_from: an earlier run's result whose host outputs (kept by
+    keep_host) stand for this run's, with the same FLAGS, args and k. The
+    table's capacities, the end of pass 1 (the last purge's return) and
+    each lookup_batch, timed by CUDA events, are recorded; with steps
+    ((module, name) pairs), the port's host seconds in each and in the
+    table's add_batch and lookup_batch."""
     import kmernator_tpu_torch.apps.filter_reads as app
-    tables, purges = [], []
+    tables, purges, lookup_events = [], [], []
+    pass1_end = []
+    stages = {}
 
     class Recorded(app.MeshStreamingSpectrum):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             tables.append(self)
+            self.caps = [self.cap]
+
+        def _maybe_grow(self, *a, **kw):
+            super()._maybe_grow(*a, **kw)
+            if self.cap != self.caps[-1]:
+                self.caps.append(self.cap)
+
+        def add_batch(self, *a, **kw):
+            t0 = time.perf_counter()
+            super().add_batch(*a, **kw)
+            stages["add_batch"] = stages.get("add_batch", 0.0) + (
+                time.perf_counter() - t0)
+
+        def lookup_batch(self, *a, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            out = super().lookup_batch(*a, **kw)
+            ev[1].record()
+            lookup_events.append(ev)
+            stages["lookup_batch"] = stages.get("lookup_batch", 0.0) + (
+                time.perf_counter() - t0)
+            return out
+
+        def purge_min_depth(self, *a, **kw):
+            super().purge_min_depth(*a, **kw)
+            pass1_end.append(time.perf_counter())
 
         def purge_variants_mesh(self, *a, **kw):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -387,6 +474,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
             purges.append({"removed": n, "device_ms": ev[0].elapsed_time(
                 ev[1]), "host_s": time.perf_counter() - t0,
                 **self.purge_stats})
+            pass1_end.append(time.perf_counter())
             return n
 
     port_out = os.path.join(WORK, name + "-port")
@@ -395,6 +483,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     os.environ.update(extra_env)
     plain_class = app.MeshStreamingSpectrum
     app.MeshStreamingSpectrum = Recorded
+    plain_steps = timed_steps(steps, stages)
     torch.cuda.reset_peak_memory_stats()
     try:
         rl.launches = 0
@@ -404,12 +493,14 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
                      + ["--out", port_out] + FLAGS + list(args)
                      + [str(k), fq])
         torch.cuda.synchronize()
-        t_port = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        t_port = t_end - t0
         launches = rl.launches
         by_lanes = {n: rl.launches_by_lanes[n] - by_lanes[n]
                     for n in by_lanes}
     finally:
         app.MeshStreamingSpectrum = plain_class
+        restore_steps(plain_steps)
         for key, v in saved_env.items():
             if v is None:
                 os.environ.pop(key, None)
@@ -417,9 +508,12 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
                 os.environ[key] = v
     if rc != 0:
         raise SystemExit("%s: port FilterReads exited %d" % (name, rc))
-    t0 = time.perf_counter()
-    host_log = host_engine(host_out, fq, extra_env, k, args)
-    t_host = time.perf_counter() - t0
+    if host_from is None:
+        t0 = time.perf_counter()
+        host_log = host_engine(host_out, fq, extra_env, k, args)
+        t_host = time.perf_counter() - t0
+    else:
+        host_out, t_host = host_from["host_out"], host_from["host_s"]
     mine, want = outputs(port_out), outputs(host_out)
     if not want or set(mine) != set(want):
         raise SystemExit("%s: output files differ: %s vs %s"
@@ -465,12 +559,71 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
            sp.table_lanes[0].device, sp.drains, sp.purged_singletons, peak))
     log("%s: port %.2f s = %.0f reads/s; host engine %.2f s = %.0f reads/s"
         % (name, t_port, n_reads / t_port, t_host, n_reads / t_host))
-    for path in list(mine.values()) + list(want.values()):
+    for path in list(mine.values()) + ([] if keep_host
+                                       else list(want.values())):
         os.remove(path)
+    lookup_ms = sum(a.elapsed_time(b) for a, b in lookup_events)
     return {"name": name, "k": k, "launches": launches,
             "by_lanes": by_lanes, "port_s": t_port,
             "host_s": t_host, "reads": n_reads, "peak_gib": peak,
-            "purge": purge}
+            "purge": purge, "host_out": host_out, "caps": sp.caps,
+            "drains": sp.drains, "purged": sp.purged_singletons,
+            "lookups": len(lookup_events), "lookup_device_ms": lookup_ms,
+            "pass1_s": pass1_end[-1] - (t_end - t_port) if pass1_end
+            else None, "pass2_s": t_end - pass1_end[-1] if pass1_end
+            else None, "host_steps_s": stages if steps else None}
+
+
+def phase_distributed(name: str, fq: str, n_reads: int, rl, k: int,
+                      host_from, mesh1_run):
+    """FilterReads `--streaming --distributed 127.0.0.1:<port> --nprocs 1`
+    on the card against the host engine's outputs of an earlier phase
+    (host_from), beside that input's `--streaming --mesh 1` run
+    (mesh1_run): byte-identical, the table on the card and grown at least
+    once, no singleton purged, one run-length launch at the keys' lane
+    count a drain, and pass 2's lookups on the card."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    import kmernator_tpu_torch.apps.filter_reads as app
+    from kmernator_tpu_torch.io import chunked
+    steps = [(chunked, "stream_partition_readsets")] + [
+        (app, f) for f in ("ArtifactFilter", "apply_artifact_filter",
+                           "_chunk_padded", "padded_to_ragged",
+                           "score_and_trim", "select_reads", "divert_blobs")]
+    r = phase_app(name, fq, n_reads, rl, {}, k=k, host_from=host_from,
+                  port_args=["--streaming", "--distributed",
+                             "127.0.0.1:%d" % port, "--nprocs", "1"],
+                  steps=steps)
+    lanes = (k + 31) // 32
+    if len(r["caps"]) < 2:
+        raise SystemExit("%s: the table never grew (%s rows)"
+                         % (name, r["caps"]))
+    if r["purged"] != 0:
+        raise SystemExit("%s: %d singletons purged" % (name, r["purged"]))
+    if r["launches"] != r["drains"] or r["by_lanes"][lanes] != r["drains"]:
+        raise SystemExit("%s: %d drains, but the run-length kernel ran %s"
+                         % (name, r["drains"], r["by_lanes"]))
+    if r["lookups"] < 1 or r["pass2_s"] is None:
+        raise SystemExit("%s: pass 2 made no lookup on the card" % name)
+    log("%s: table %s rows on the card, %d drains (one run-length launch "
+        "each at L=%d), 0 singletons purged"
+        % (name, " -> ".join("{:,}".format(c) for c in r["caps"]),
+           r["drains"], lanes))
+    log("%s: pass 1 %.2f s, pass 2 %.2f s (%d lookup_batch calls, %.1f ms "
+        "of device time by CUDA events); peak device memory %.2f GiB"
+        % (name, r["pass1_s"], r["pass2_s"], r["lookups"],
+           r["lookup_device_ms"], r["peak_gib"]))
+    log("%s: the port's host seconds by step: %s; the rest %.2f s"
+        % (name, ", ".join("%s %.2f" % x
+                           for x in r["host_steps_s"].items()),
+           r["port_s"] - sum(r["host_steps_s"].values())))
+    log("%s: %.0f reads/s; host engine %.0f reads/s; --streaming --mesh 1 "
+        "(%s, this run) %.0f reads/s"
+        % (name, n_reads / r["port_s"], n_reads / r["host_s"],
+           mesh1_run["name"], mesh1_run["reads"] / mesh1_run["port_s"]))
+    return r
 
 
 def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
@@ -522,7 +675,8 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
         rc = app.run(["--device", "cuda", "--mesh", "1", "--kmer-size",
                       str(k), "--out", port_out, fq])
         torch.cuda.synchronize()
-        t_port = time.perf_counter() - t0
+        t_end = time.perf_counter()
+        t_port = t_end - t0
         launches = rl.launches
         by_lanes = {n: rl.launches_by_lanes[n] - before[n] for n in before}
     finally:
@@ -1230,7 +1384,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fq = os.path.join(WORK, "meta256.fastq")
     n = generate(fq, "6")
-    runs = [phase_app("streaming", fq, n, rl, {})]
+    runs = [phase_app("streaming", fq, n, rl, {}, keep_host=True)]
     fq256, n256 = fq, n
     log("phase 4 streaming slice ok [%.1f s]" % (time.perf_counter() - t0))
 
@@ -1271,7 +1425,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wide = [phase_app("wide-k33", fq32, n32, rl, in_memory, k=33),
             phase_app("wide-k63-streaming", fq32, n32, rl, in_memory, k=63,
-                      port_args=["--streaming"]),
+                      port_args=["--streaming"], keep_host=True),
             phase_app("wide-k95", fq32, n32, rl, in_memory, k=95)]
     log("phase 10 k > 32 ok [%.1f s]" % (time.perf_counter() - t0))
 
@@ -1286,12 +1440,23 @@ def main() -> int:
                            ASM_ITERATIONS),
            phase_assembler("asm-k45", fq32, n32, rl, ms, hi, 45, 25,
                            ASM_ITERATIONS)]
-    os.remove(fq256)
-    os.remove(fq32)
     log("phase 12 nucleating assembler --mesh 1 ok [%.1f s]"
         % (time.perf_counter() - t0))
-    runs += [purge_run] + wide + mer
-    launches += sum(r["launches"] for r in [purge_run] + wide + mer)
+
+    t0 = time.perf_counter()
+    dist = [phase_distributed("dist-streaming", fq256, n256, rl, K,
+                              runs[0], runs[0]),
+            phase_distributed("dist-k63", fq32, n32, rl, 63, wide[1],
+                              wide[1])]
+    for r in (runs[0], wide[1]):
+        for path in outputs(r["host_out"]).values():
+            os.remove(path)
+    os.remove(fq256)
+    os.remove(fq32)
+    log("phase 13 --streaming --distributed --nprocs 1 ok [%.1f s]"
+        % (time.perf_counter() - t0))
+    runs += [purge_run] + wide + mer + dist
+    launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
     by_lanes = {L: sum(r["by_lanes"][L] for r in runs) for L in (1, 2, 3)}
     by_lanes[1] += count["run_length"]
     if min(by_lanes.values()) <= 0:
@@ -1310,7 +1475,8 @@ def main() -> int:
     log("earlier designs (recorded, not run here): %s"
         % json.dumps(PREV_MS))
     log("FilterReads and MeraculousCounter runs: %s" % json.dumps({
-        r["name"]: {key: v for key, v in r.items() if key != "name"}
+        r["name"]: {key: v for key, v in r.items()
+                    if key not in ("name", "host_out")}
         for r in runs}))
     log("assembler runs (no kernel launched): %s" % json.dumps({
         r["name"]: {key: v for key, v in r.items() if key != "name"}

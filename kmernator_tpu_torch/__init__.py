@@ -25,6 +25,9 @@ Layer map:
                          search_lanes
   parallel/spectrum.py, spill.py  copied host spectrum and spill counter
   parallel/mesh.py, mesh_stream.py  one-device mesh, MeshStreamingSpectrum
+                         (with grow-on-pressure)
+  parallel/multihost.py  host collectives and gathered writes over
+                         torch.distributed
   parallel/dist_match.py the assembler's read index on one device
   apps/filter_reads.py   the port's FilterReads
   apps/meraculous_counter.py, nucleating_assembler.py, contig_extender.py

@@ -12,19 +12,26 @@ without --mesh (in-memory, and streaming with its fork pool), the
 in-memory --mesh 1 engine and --streaming --mesh 1. It differs from its
 source in its package imports and in these places:
 
-- The three device seams are the port's: `window_count_lookup_mesh`
-  (in-memory --mesh 1), `_chunk_padded` and `_streaming_mesh_count`
+- The device seams are the port's: `window_count_lookup_mesh`
+  (in-memory --mesh 1), `_chunk_padded`, `_streaming_mesh_count`
   (--streaming --mesh 1, and inputs over 2 MB, which stream on their own)
-  count and look up on a torch device through MeshStreamingSpectrum. The
-  two that touch the device take it as a keyword, threaded from `run`
-  through `run_streaming`.
+  and `run_streaming_distributed` (--streaming --distributed at one
+  process, with grow-on-pressure and its pass-2 lookups on the device)
+  count and look up on a torch device through MeshStreamingSpectrum. Those
+  that touch the device take it as a keyword, threaded from `run`.
+- `run_streaming_distributed` builds its table with the port's
+  `make_mesh(1, device)` in place of the global mesh, takes the port's
+  default mesh batch (2,048 reads, as the JAX `auto_mesh_batch` off a TPU)
+  and its collectives from the port's `parallel/multihost.py`.
 - `run` takes `--device cuda|cpu` (default cuda; cuda without a visible
   GPU raises) in place of `--jax-platform`, and checks `refusal` first.
-- Not copied: `run_streaming_distributed` with `_slice_pad_batch`, and
-  the multi-process branches of `run`. Refused, each waiting for a later
-  PR: --distributed, --nprocs > 1, --mesh > 1 and --gathered-logs. k > 96
-  is refused on a --mesh path (keys of at most 3 int64 lanes; the JAX
-  package takes any k there).
+  `--distributed X` runs at one process: with --streaming (or an input
+  that streams on its own) in `run_streaming_distributed`, else on the
+  in-memory engine, which ignores the coordinator as the JAX app does.
+- Refused, each waiting for the D > 1 PR: --nprocs > 1, --mesh > 1 and
+  --gathered-logs, so the multi-process branches of `run` are not copied.
+  k > 96 is refused on a --mesh path and in the distributed engine (keys
+  of at most 3 int64 lanes; the JAX package takes any k there).
 """
 from __future__ import annotations
 
@@ -1567,16 +1574,366 @@ def run_streaming(opts, kopts, sopts, ropts, aopts, fopts, chunk_mb: float,
     return 0
 
 
+def _slice_pad_batch(cur, off: int, n: int, L: int, k: int, track_w: bool):
+    """Row-slice [off, off+n) of a chunk's padded arrays, re-padded to the
+    globally-agreed (n rows, L columns) batch shape.  cur=None yields the
+    all-empty batch a drained rank feeds to keep collectives in lockstep."""
+    NW = L - k + 1
+    out_c = np.zeros((n, L), np.uint8)
+    out_g = np.zeros((n, NW), bool)
+    out_l = np.zeros(n, np.int32)
+    out_w = np.zeros((n, NW), np.float32) if track_w else None
+    if cur is None:
+        return out_c, out_g, out_l, out_w, 0
+    codes, good2d, lengths, weights2d = cur
+    e = min(off + n, codes.shape[0])
+    m = e - off
+    out_c[:m, :codes.shape[1]] = codes[off:e]
+    out_g[:m, :good2d.shape[1]] = good2d[off:e]
+    out_l[:m] = lengths[off:e]
+    if track_w and weights2d is not None:
+        out_w[:m, :weights2d.shape[1]] = weights2d[off:e]
+    return out_c, out_g, out_l, out_w, m
+
+
+def run_streaming_distributed(opts, kopts, sopts, ropts, aopts, fopts,
+                              chunk_mb: float, capacity: int,
+                              mesh_batch: int, *,
+                              device: torch.device) -> int:
+    """--streaming x --distributed: the reference's flagship composition —
+    rank-partitioned STREAMING input feeding the DISTRIBUTED table
+    (ref: _buildKmerSpectrumMPI, src/DistributedFunctions.h:333-458, fed
+    by the rank-partitioned ReadSetStream, src/ReadSet.h:656-748).
+
+    Every process streams only its byte-range partition of the inputs
+    (pair-preserving resync; the union over ranks is exactly the input).
+    Pass 1 feeds chunks through a MeshStreamingSpectrum on `device` in
+    lockstep rounds: each round every process allgathers (has-data,
+    padded-L) flags, agrees on the batch shape, and issues one add_batch —
+    drained ranks feed empty batches so collectives stay in lockstep (the
+    empty-cycle consensus of MPIBuffer::finalize, src/MPIBuffer.h:922).
+    The table starts at the estimate / 6 and grows on pressure. Pass 2
+    re-streams each rank's partition and scores it with lockstep lookups
+    against the table on the device (the ReqResp RPC of
+    src/DistributedFunctions.h:749-1062), so the full table never reaches
+    the host unless histograms ask for it. Outputs land as rank-ordered
+    gathered files (rank 0 first — apps/FilterReads-P.cpp:190-197). Peak
+    per-process RSS is O(chunk + table/P). The port runs it at one
+    process (D = 1)."""
+    from kmernator_tpu_torch.io.chunked import stream_partition_readsets
+    from kmernator_tpu_torch.io.stream import estimate_raw_kmers
+    from kmernator_tpu_torch.parallel import multihost as mh
+    from kmernator_tpu_torch.utils.memory import (get_memory_usage,
+                                                  tune_malloc_for_streaming)
+
+    tune_malloc_for_streaming()
+    k = kopts.kmer_size
+    rank, nprocs = mh.process_index(), mh.process_count()
+    if any(p.endswith(".gz") for p in opts.input_file):
+        Log.error("--streaming --distributed needs random-access input; "
+                  "decompress gz files first")
+        return 1
+    chunk_bytes = max(int(chunk_mb * (1 << 20)), 1 << 12)
+    filt = None
+    if not aopts.skip_artifact_filter:
+        filt = ArtifactFilter(
+            match_length=aopts.artifact_match_length,
+            edit_distance=aopts.artifact_edit_distance,
+            build_edits_in_filter=aopts.build_artifact_edits_in_filter,
+            mask_simple_repeats=aopts.mask_simple_repeats,
+            phix=aopts.phix_output,
+            extra_reference_files=aopts.artifact_reference_file,
+            min_quality=opts.min_quality_score,
+            min_read_length=ropts.min_read_length)
+    scan_dir = None
+    if filt is not None and opts.output_file:
+        from kmernator_tpu_torch.utils.cleanup import register_path
+        from kmernator_tpu_torch.utils.memory import fast_temp_dir
+        scan_dir = fast_temp_dir(
+            sum(os.path.getsize(p) for p in opts.input_file)
+            // (4 * nprocs), "kmtpu-afscan-r%d-" % rank)
+        register_path(scan_dir)
+
+    last_outcome: Dict[str, object] = {}
+
+    # paired two-file inputs stream in record LOCKSTEP here too: every
+    # rank computes the same aligned chunk ranges (deterministic) and
+    # owns a CONTIGUOUS block, so the rank-ordered gathered outputs
+    # reproduce the single-process chunk order byte-for-byte
+    from kmernator_tpu_torch.io.chunked import paired_files_aligned
+    paired_stream = (len(opts.input_file) == 2
+                     and paired_files_aligned(*opts.input_file))
+    if len(opts.input_file) == 2 and not paired_stream:
+        Log.warn("two input files do not pair positionally; each rank "
+                 "streams its byte-range partition of each file "
+                 "independently (mates split across files will not pair)")
+
+    def _rank_readsets():
+        if paired_stream:
+            from kmernator_tpu_torch.io.chunked import (
+                detect_base_from_head, paired_chunk_ranges,
+                read_chunk_paired)
+            p1, p2 = opts.input_file
+            ranges = paired_chunk_ranges(p1, p2, chunk_bytes)
+            base = detect_base_from_head([p1], chunk_bytes,
+                                         opts.fastq_output_base_quality,
+                                         opts.keep_read_comment)
+            n = len(ranges)
+            lo, hi = rank * n // nprocs, (rank + 1) * n // nprocs
+            for rng in ranges[lo:hi]:
+                yield read_chunk_paired(p1, p2, rng, base,
+                                        opts.keep_read_comment)
+        else:
+            yield from stream_partition_readsets(
+                opts.input_file, rank, nprocs, chunk_bytes,
+                opts.fastq_output_base_quality, opts.keep_read_comment)
+
+    def chunks(replay: bool = False):
+        for ci, rs in enumerate(_rank_readsets()):
+            last_outcome.pop("o", None)
+            # pairs before the filter: see run_streaming.chunks()
+            rs.identify_pairs()
+            if filt is not None:
+                pre = None
+                path = (os.path.join(scan_dir, "%06d.npz" % ci)
+                        if scan_dir else None)
+                if replay and path and os.path.exists(path):
+                    with np.load(path) as z:
+                        pre = tuple(z[f] for f in
+                                    ("sv", "smn", "smx", "sso", "ssl", "sph"))
+                o = apply_artifact_filter(rs, filt, precomputed=pre)
+                if not replay and path:
+                    sv, smn, smx, sso, ssl, sph = o.scan
+                    np.savez(path, sv=sv, smn=smn, smx=smx, sso=sso,
+                             ssl=ssl, sph=sph)
+                last_outcome["o"] = o
+            yield rs
+
+    track_w = bool(fopts.histogram_file) or sopts.variant_sigmas > 0.0
+    subtract_keys = None
+    sp = None
+    stats = {"raw": 0, "good": 0, "reads": 0}
+
+    def chunk_arrays(replay: bool):
+        for rs in chunks(replay):
+            if k <= 0:
+                # no spectrum: only the row count matters downstream
+                yield rs, (np.zeros((rs.n, 1), np.uint8), None, None, None)
+                continue
+            need = max(rs.max_length(), k)
+            Lc = -(-need // 32) * 32
+            codes, good2d, lengths, weights2d, r, g = _chunk_padded(
+                rs, k, Lc, opts.min_quality_score,
+                opts.fastq_output_base_quality, sopts.min_kmer_quality,
+                subtract_keys, track_w)
+            if not replay:
+                stats["raw"] += r
+                stats["good"] += g
+                stats["reads"] += rs.n
+            yield rs, (codes, good2d, lengths, weights2d)
+
+    mesh = make_mesh(1, device)
+    D = mesh.size
+    L_glob = -(-k // 32) * 32
+    batch_reads = mesh_batch
+
+    if k > 0:
+        subtract_keys = build_subtract_keys(
+            fopts.reference_file, fopts.subtract_file, k,
+            opts.min_quality_score, opts.fastq_output_base_quality,
+            sopts.min_kmer_quality, sopts.min_depth)
+        est = estimate_raw_kmers(opts.input_file, k)
+        if capacity > 0:
+            sp = MeshStreamingSpectrum(mesh, k, capacity=capacity)
+        else:
+            # expected-unique start + grow on pressure (see
+            # _streaming_mesh_count)
+            sp = MeshStreamingSpectrum(
+                mesh, k,
+                capacity=min(max(int(np.ceil(est / D / 6)), 4096), 2 << 20),
+                max_capacity=64 << 20)
+
+        # ---- pass 1: lockstep streaming build ----
+        it = iter(chunk_arrays(False))
+        cur, off = None, 0
+        cur_item = next(it, None)
+        if cur_item is not None:
+            cur = cur_item[1]
+        while True:
+            if cur is not None and off >= cur[0].shape[0]:
+                nxt = next(it, None)
+                cur = nxt[1] if nxt is not None else None
+                off = 0
+            has = 0 if cur is None else 1
+            need_l = cur[0].shape[1] if cur is not None else 0
+            f = mh.allgather_ints([has, need_l])
+            if int(f[:, 0].max()) == 0:
+                break
+            L_glob = max(L_glob, int(f[:, 1].max()))
+            if batch_reads <= 0:
+                batch_reads = DEFAULT_BATCH_READS
+                Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
+                            % (batch_reads, L_glob))
+            bc, bg, bl, bw, m = _slice_pad_batch(cur, off, batch_reads,
+                                                 L_glob, k, track_w)
+            sp.add_batch(bc, bg, bl, weights2d=bw)
+            if cur is not None:
+                off += batch_reads
+        if sp.purged_singletons:
+            Log.warn("mesh streaming purged %d singletons under capacity "
+                     "pressure (counts may undercount by 1); raise "
+                     "--streaming-parts capacity" % sp.purged_singletons)
+        tot = mh.allgather_ints(
+            [stats["raw"], stats["good"], stats["reads"]]).sum(axis=0)
+        Log.verbose(1, "rank %d streamed %d reads (global %d) over %d "
+                    "devices; %s" % (rank, stats["reads"], int(tot[2]), D,
+                                     get_memory_usage()))
+        # histogram / size-history want the pre-purge global table
+        if fopts.histogram_file or fopts.size_history_file:
+            spectrum_h = sp.to_host_spectrum(min_depth=1)
+            spectrum_h.raw_kmers = int(tot[0])
+            spectrum_h.raw_good_kmers = int(tot[1])
+            if rank == 0:
+                if fopts.histogram_file:
+                    with open(fopts.histogram_file, "w") as fh:
+                        fh.write(spectrum_h.histogram_table())
+                if fopts.size_history_file:
+                    with open(fopts.size_history_file, "w") as fh:
+                        fh.write("rawKmers\trawGoodKmers\tuniqueKmers\t"
+                                 "singletonKmers\n")
+                        fh.write("%d\t%d\t%d\t%d\n" % (
+                            spectrum_h.raw_kmers, spectrum_h.raw_good_kmers,
+                            spectrum_h.n_unique,
+                            spectrum_h.singleton_count()))
+            del spectrum_h
+        # purge order parity with the host path: singletons leave the
+        # table before the variant purge
+        sp.purge_min_depth(max(sopts.min_depth, 2))
+        if sopts.variant_sigmas > 0.0:
+            purged = sp.purge_variants_mesh(
+                sopts.variant_sigmas, sopts.variant_hamming_distance,
+                sopts.min_variant_kmer_depth,
+                min_depth=max(sopts.min_depth, 2))
+            Log.verbose(1, "Removed %d kmer-variants (mesh, on-device)"
+                        % purged)
+
+    if not opts.output_file:
+        return 0
+
+    # ---- pass 2: lockstep lookups, local scoring, gathered writes ----
+    import tempfile
+    from kmernator_tpu_torch.utils.cleanup import register_path
+    part_dir = tempfile.mkdtemp(prefix="kmtpu-dist-out-r%d-" % rank)
+    register_path(part_dir)
+    local_parts: Dict[str, str] = {}
+
+    def append_local(path: str, data: bytes):
+        lp = local_parts.get(path)
+        if lp is None:
+            lp = os.path.join(part_dir,
+                              "%05d.part" % len(local_parts))
+            local_parts[path] = lp
+        with open(lp, "ab") as fh:
+            fh.write(data)
+
+    def finish_chunk(rs, arrays, rows):
+        codes = arrays[0]
+        B = codes.shape[0]
+        NWc = codes.shape[1] - k + 1
+        if k > 0:
+            nw = np.maximum(rs.lengths() - k + 1, 0)
+            counts2d = np.concatenate(rows)[:B, :NWc] if rows else \
+                np.zeros((B, NWc), np.int32)
+            counts = padded_to_ragged(counts2d, nw).astype(np.int64)
+            w_off = np.concatenate([[0], np.cumsum(nw)])
+            trims = score_and_trim(rs, counts, w_off, k,
+                                   float(sopts.min_depth),
+                                   ropts.kmer_scoring_type,
+                                   first_markup_nor_x(rs),
+                                   ropts.bimodal_sigmas)
+        else:
+            trims = _trim_by_markup(rs)
+        outputs = select_reads(
+            rs, trims, None, opts, kopts, sopts, ropts, opts.input_file,
+            paired_parts=paired_stream and not ropts.separate_outputs)
+        if "o" in last_outcome:
+            outputs.update(divert_blobs(rs, last_outcome["o"], opts, aopts))
+        for path, data in outputs.items():
+            append_local(path, data)
+
+    it2 = iter(chunk_arrays(True))
+    cur_rs, cur, off, rows = None, None, 0, []
+    nxt = next(it2, None)
+    if nxt is not None:
+        cur_rs, cur = nxt
+    while True:
+        if cur is not None and off >= cur[0].shape[0]:
+            finish_chunk(cur_rs, cur, rows)
+            nxt = next(it2, None)
+            cur_rs, cur = nxt if nxt is not None else (None, None)
+            off, rows = 0, []
+        if k <= 0:
+            # no table: score chunks locally with no collectives
+            if cur is None:
+                break
+            off = cur[0].shape[0]
+            continue
+        has = 0 if cur is None else 1
+        need_l = cur[0].shape[1] if cur is not None else 0
+        f = mh.allgather_ints([has, need_l])
+        if int(f[:, 0].max()) == 0:
+            break
+        L_glob = max(L_glob, int(f[:, 1].max()))
+        bc, _, bl, _, m = _slice_pad_batch(cur, off, batch_reads,
+                                           L_glob, k, False)
+        want = np.ones((batch_reads, L_glob - k + 1), bool)
+        c2d = sp.lookup_batch(bc, want, bl,
+                              min_count=max(sopts.min_depth, 2))
+        if cur is not None:
+            rows.append(c2d[:m])
+            off += batch_reads
+    # zero-read partition edge: a rank whose partition was empty still
+    # joins the gathered writes below.  PART_MARK keys (the merged
+    # paired-output part streams) gather into per-part temp files first,
+    # then concatenate in (part, rank) order onto the real path — all
+    # ranks' file-1 picks before any file-2 picks, the file-sequential
+    # merged ordering of the in-memory path (src/ReadSelector.h:1212).
+    all_paths = mh.allgather_strings(sorted(local_parts.keys()))
+    pending_parts: Dict[str, list] = {}
+    for path in all_paths:
+        real, pi = _part_stream_path(path)
+        if pi is None:
+            mh.write_gathered_file(path, local_parts.get(path))
+            if rank == 0:
+                Log.verbose(1, "wrote %s (%d bytes)"
+                            % (path, os.path.getsize(path)))
+        else:
+            tmp = "%s.gpart%d" % (real, pi)
+            mh.write_gathered_file(tmp, local_parts.get(path))
+            pending_parts.setdefault(real, []).append((pi, tmp))
+    if rank == 0:
+        import shutil
+        for real in sorted(pending_parts):
+            with open(real, "wb") as outf:
+                for pi, tmp in sorted(pending_parts[real]):
+                    with open(tmp, "rb") as f:
+                        shutil.copyfileobj(f, outf)
+                    os.unlink(tmp)
+            Log.verbose(1, "wrote %s (%d bytes)"
+                        % (real, os.path.getsize(real)))
+    return 0
+
+
 def _flag_value(argv: List[str], flag: str):
     return argv[argv.index(flag) + 1] if flag in argv else None
 
 
 def refusal(argv: List[str]):
     """The reason this port cannot run `argv` yet, or None."""
-    if "--distributed" in argv or int(_flag_value(argv, "--nprocs")
-                                      or 1) > 1:
-        return ("--distributed/--nprocs (multi-process runs over "
-                "torch.distributed) wait for the D > 1 PR")
+    if int(_flag_value(argv, "--nprocs") or 1) > 1:
+        return ("--nprocs %s (multi-process runs over torch.distributed) "
+                "waits for the D > 1 PR; --distributed runs at --nprocs 1"
+                % _flag_value(argv, "--nprocs"))
     if int(_flag_value(argv, "--mesh") or 0) not in (0, 1):
         return ("--mesh %s waits for the D > 1 PR (owner hash, bucket "
                 "scatter and all_to_all over NCCL); use --mesh 1"
@@ -1633,12 +1990,21 @@ def run(argv: List[str]) -> int:
         i = argv.index("--streaming-parts")
         streaming_capacity = int(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    # `refusal` has turned away every multi-process run; --nprocs 1 and
-    # --procid are taken and ignored, as the JAX app does in one process
-    for flag in ("--nprocs", "--procid"):
-        if flag in argv:
-            i = argv.index(flag)
-            argv = argv[:i] + argv[i + 2:]
+    # multi-process mode (the FilterReads-P mpirun analogue): `refusal`
+    # has turned away --nprocs > 1, so this is one process
+    dist_coord, dist_nprocs, dist_procid = None, 1, 0
+    if "--distributed" in argv:
+        i = argv.index("--distributed")
+        dist_coord = argv[i + 1]
+        argv = argv[:i] + argv[i + 2:]
+    if "--nprocs" in argv:
+        i = argv.index("--nprocs")
+        dist_nprocs = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    if "--procid" in argv:
+        i = argv.index("--procid")
+        dist_procid = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     compose([opts, kopts, sopts, ropts, aopts, dopts, fopts], argv,
             positional=["kmer-size", "input-file"])
     Log.verbose_level = opts.verbose
@@ -1665,7 +2031,7 @@ def run(argv: List[str]) -> int:
             return False
 
     auto_streamable = (
-        not streaming
+        not streaming and dist_nprocs == 1
         and ropts.max_kmer_output_depth <= 0 and dopts.dedup_mode <= 0
         and not sopts.save_kmer_mmap and not sopts.load_kmer_mmap
         and ropts.partition_by_depth <= 0 and kopts.kmer_size != 0
@@ -1717,6 +2083,23 @@ def run(argv: List[str]) -> int:
             Log.error("--streaming does not support duplicate-fragment "
                       "dedup (global pairing state); use the in-memory path")
             return 1
+        if dist_nprocs > 1 or dist_coord is not None:
+            # the flagship composition: rank-partitioned streaming input
+            # feeding the distributed table (nprocs == 1 runs the same
+            # lockstep code degenerately)
+            if ropts.max_kmer_output_depth > 0:
+                Log.error("--streaming does not support "
+                          "max-kmer-output-depth normalization (global "
+                          "state); use the in-memory path")
+                return 1
+            from kmernator_tpu_torch.parallel import multihost
+            multihost.initialize(dist_coord, dist_nprocs, dist_procid)
+            rc = run_streaming_distributed(opts, kopts, sopts, ropts, aopts,
+                                           fopts, streaming_chunk_mb,
+                                           streaming_capacity, mesh_batch,
+                                           device=device)
+            Log.flush_gathered()
+            return rc
         rc = run_streaming(opts, kopts, sopts, ropts, aopts, fopts,
                            streaming_chunk_mb, streaming_capacity,
                            mesh_devices=mesh_devices, mesh_batch=mesh_batch,

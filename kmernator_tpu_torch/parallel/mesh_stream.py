@@ -46,8 +46,14 @@ sigmas` rounded once, as the fused multiply-add XLA makes of it, with a
 correctly rounded square root, and the division by 20 ^ (dist - 1) a
 multiply by its float32 reciprocal.
 
-Not ported yet (off every D=1 FilterReads path): grow-on-pressure
-(max_capacity, _maybe_grow).
+Grow-on-pressure (max_capacity > capacity, the JAX `_maybe_grow` and
+`_pad_table_fn`): before a drain the table grows until it can take every
+real staged row as a new key (headroom 1), after it until it is at most
+half full (headroom 2), 4x a step up to max_capacity. A step appends
+sentinel rows, which sort last, so the table stays sorted. At D = 1 the
+steps are the JAX ones row for row: the same count of real staged rows
+(the host good mask, padding included as zeros) and the same rows kept by
+a drain.
 """
 from __future__ import annotations
 
@@ -66,6 +72,7 @@ from kmernator_tpu_torch.parallel.device_spectrum import (
 from kmernator_tpu_torch.parallel.mesh import Mesh
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
+from kmernator_tpu_torch.utils.logging import Log
 
 # candidate rows a purge chunk holds at most, by device type
 PURGE_CHUNK_ROWS = {"cuda": 1 << 24, "cpu": 1 << 20}
@@ -187,10 +194,13 @@ class MeshStreamingSpectrum:
     batches (the JAX MeshStreamingSpectrum on make_mesh(1)).
 
     capacity = table rows. Beyond it, the drain purges singletons, exactly
-    as the JAX package does (lowest keys kept)."""
+    as the JAX package does (lowest keys kept). max_capacity > capacity
+    lets the table grow on pressure (4x steps up to max_capacity), so its
+    memory follows the distinct keys and the purge fires only at the
+    ceiling; max_capacity == 0 keeps the capacity fixed."""
 
     def __init__(self, mesh: Mesh, k: int, capacity: int,
-                 drain_threshold: int = 0):
+                 drain_threshold: int = 0, max_capacity: int = 0):
         check_k(k)
         if mesh.size != 1:
             raise NotImplementedError("MeshStreamingSpectrum runs on one "
@@ -201,6 +211,8 @@ class MeshStreamingSpectrum:
         self.W = nwords(k)
         self.L = nlanes(self.W)
         self.cap = int(capacity)
+        self.max_capacity = int(max_capacity)
+        self._user_threshold = bool(drain_threshold)
         # staged rows that trigger a merge into the table (the drain sorts
         # cap + staged rows)
         self.drain_threshold = int(drain_threshold) or self.cap // 2
@@ -213,6 +225,8 @@ class MeshStreamingSpectrum:
                                          device=self.device)
         self._staged: List[Tuple[List[torch.Tensor], torch.Tensor]] = []
         self._staged_rows = 0
+        self._staged_real = 0   # good windows staged, from the host mask
+        self._last_filled = 0   # table rows kept by the last drain
         self.purged_singletons = 0
         self.drains = 0
         # the last variant purge: sources, rounds and candidate rows searched
@@ -254,12 +268,20 @@ class MeshStreamingSpectrum:
             w = torch.where(g, w, torch.zeros_like(w))
         self._staged.append((lanes, w))
         self._staged_rows += lanes[0].numel()
+        self._staged_real += int(np.asarray(good2d).sum())
         if self._staged_rows >= self.drain_threshold:
             self._drain()
 
     def _drain(self):
         if not self._staged:
             return
+        # grow first, so this merge cannot purge below the ceiling: at
+        # worst every real staged row is a new key (x2, the JAX package's
+        # allowance for hash skew between shards, kept so that the steps
+        # are its steps)
+        if self.max_capacity > self.cap:
+            self._maybe_grow(self._last_filled + 2 * self._staged_real + 1,
+                             headroom=1)
         keys = [torch.cat([self.table_lanes[j]]
                           + [s[0][j] for s in self._staged])
                 for j in range(self.L)]
@@ -271,6 +293,7 @@ class MeshStreamingSpectrum:
                             + [s[1] for s in self._staged])
         self._staged = []
         self._staged_rows = 0
+        self._staged_real = 0
         # 1) sort by key; run totals at run ends from the run-length kernel
         skeys, perm = sort_lanes(keys)
         del keys
@@ -305,6 +328,32 @@ class MeshStreamingSpectrum:
         filled = self._compact(run_keys, run_counts, run_w, keep)
         self.purged_singletons += n_real - filled
         self.drains += 1
+        self._last_filled = filled
+        self._maybe_grow(filled)
+
+    def _maybe_grow(self, rows: int, headroom: int = 2):
+        """Grow the table (4x steps) while rows * headroom > cap, up to
+        max_capacity: after a drain with the rows it kept (headroom 2: stay
+        at most half full), before one with the most rows it could keep
+        (headroom 1). The drain threshold follows cap unless the caller set
+        it."""
+        while (self.max_capacity > self.cap
+               and rows * headroom > self.cap):
+            pad = min(3 * self.cap, self.max_capacity - self.cap)
+            self.table_lanes = [
+                torch.cat([t, torch.full((pad,), SENTINEL_LANE,
+                                         dtype=torch.int64,
+                                         device=self.device)])
+                for t in self.table_lanes]
+            self.table_counts = torch.cat([self.table_counts, torch.zeros(
+                pad, dtype=torch.int32, device=self.device)])
+            self.table_weights = torch.cat([self.table_weights, torch.zeros(
+                pad, dtype=torch.float32, device=self.device)])
+            self.cap += pad
+            if not self._user_threshold:
+                self.drain_threshold = self.cap // 2
+            Log.debug(1, "mesh shard table grew to %d rows/device "
+                      "(driving rows %d x%d)" % (self.cap, rows, headroom))
 
     def _compact(self, lanes, counts, weights, keep) -> int:
         """The table becomes the `keep` rows of (lanes, counts, weights), in
@@ -489,6 +538,7 @@ class MeshStreamingSpectrum:
             device=self.device)
         self._staged = []
         self._staged_rows = 0
+        self._staged_real = 0
 
     def set_table(self, keys: np.ndarray, counts: np.ndarray,
                   weights: np.ndarray = None):

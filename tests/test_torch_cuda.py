@@ -228,6 +228,52 @@ def test_mesh_stream_matches_cpu(cuda_device, k):
             spectra[1].lookup_batch(codes, want, lengths, min_count=2))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 63])
+def test_grown_table_matches_cpu(cuda_device, k):
+    """Grow-on-pressure on the card (the `--streaming --distributed`
+    engine's table): from 1,024 rows, the same growth steps as on the CPU,
+    the same table after every batch and the same lookups; the grown lanes
+    stay on the card."""
+    rng = np.random.default_rng(40 + k)
+    B, L = 256, k + 40
+    genome = rng.integers(0, 4, 5000).astype(np.uint8)
+    NW = L - k + 1
+    spectra = [MeshStreamingSpectrum(make_mesh(1, dev), k, capacity=1024,
+                                     max_capacity=1 << 20)
+               for dev in ("cpu", cuda_device)]
+    caps = []
+    batches = []
+    w_in = 0.0
+    for _ in range(12):
+        codes = genome[rng.integers(0, 5000 - L, B)[:, None]
+                       + np.arange(L)[None, :]]
+        codes[B // 2:] = rng.integers(0, 4, (B - B // 2, L))
+        lengths = rng.integers(k - 1, L + 1, B).astype(np.int32)
+        good = rng.random((B, NW)) < 0.8
+        weights = rng.random((B, NW)).astype(np.float32)
+        w_in += float(weights[good].sum())
+        batches.append((codes, good, lengths))
+        for sp in spectra:
+            sp.add_batch(codes, good, lengths, weights2d=weights)
+        assert spectra[0].cap == spectra[1].cap
+        caps.append(spectra[1].cap)
+        cpu, dev = (sp.to_numpy_tables() for sp in spectra)
+        assert np.array_equal(cpu[0], dev[0])
+        assert np.array_equal(cpu[1], dev[1])
+        np.testing.assert_allclose(dev[2], cpu[2], rtol=0, atol=1e-6 * w_in)
+    assert caps[0] == 65536 and caps[-1] == 262144
+    assert spectra[1].drains >= 2
+    assert spectra[1].purged_singletons == spectra[0].purged_singletons == 0
+    assert all(x.device.type == "cuda" for x in spectra[1].table_lanes)
+    assert spectra[1].table_counts.device.type == "cuda"
+    for codes, good, lengths in batches[:4]:
+        want = np.ones_like(good)
+        assert np.array_equal(
+            spectra[0].lookup_batch(codes, want, lengths, min_count=2),
+            spectra[1].lookup_batch(codes, want, lengths, min_count=2))
+
+
 def _purge_table(rng, k, n_sources=40):
     """A host table of sources (counts 600-5000), hamming-1 and -2 variants
     of them (some deep enough to be sources in turn) and noise: keys [M, W]

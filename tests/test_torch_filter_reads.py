@@ -228,7 +228,8 @@ def test_streaming_mesh_weights_reach_output(tmp_path, metagenome):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "2"], "D > 1"),
-    (["--mesh", "1", "--distributed", "127.0.0.1:1"], "D > 1"),
+    (["--streaming", "--distributed", "127.0.0.1:1", "--nprocs", "2"],
+     "D > 1"),
     (["--mesh", "1", "--nprocs", "2"], "D > 1"),
     (["--mesh", "1", "--gathered-logs", "1"], "D > 1"),
 ])
@@ -238,6 +239,21 @@ def test_refused_flags(tmp_path, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         torch_app.run(["--device", "cpu"] + argv
                       + ["--out", str(tmp_path / "o")] + BASE + ["31", inp])
+
+
+def test_distributed_one_process_in_memory(tmp_path):
+    """--distributed X at one process without --streaming: the in-memory
+    --mesh 1 engine, which ignores the coordinator as the JAX app does."""
+    inp = str(tmp_path / "in.fastq")
+    _graft_input(inp)
+    for name, extra in (("plain", []),
+                        ("dist", ["--distributed", "127.0.0.1:1"])):
+        assert torch_app.run(["--device", "cpu", "--mesh", "1"] + extra
+                             + ["--out", str(tmp_path / name)] + BASE
+                             + ["31", inp]) == 0
+    want, got = _outputs(str(tmp_path), "plain"), _outputs(str(tmp_path),
+                                                           "dist")
+    assert want and got == want and any(len(v) for v in got.values())
 
 
 def test_wide_k_refused(tmp_path):

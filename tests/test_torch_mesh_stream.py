@@ -9,6 +9,8 @@ one, rounded to float32, so each JAX run weight may be off by a few
 float32 ulps of that total. The port's are held to float64 sums past the
 float32 prefix's edge, and its counts to int64 sums past the int32 one.
 """
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -245,3 +247,139 @@ def test_drain_weights_past_the_float32_prefix_edge():
     err = np.abs(jw.astype(np.float64)
                  - np.array([want[key] for key in sorted(want)]))
     assert err[1:].max() >= 0.3 and (jw[1:] == np.round(jw[1:])).all()
+
+
+def _grow_batches(seed, n=10, Bg=256, Lg=64, k=31, good_frac=1.0):
+    """The JAX grow test's batches (tests/test_mesh_stream.py:166-218):
+    half of each batch from a 3 kb genome, half random, every read full
+    length; each window good with probability good_frac."""
+    rng = np.random.default_rng(seed)
+    genome = rng.integers(0, 4, 3000, dtype=np.uint8)
+    batches = []
+    for _ in range(n):
+        codes = rng.integers(0, 4, (Bg, Lg), dtype=np.uint8)
+        starts = rng.integers(0, 3000 - Lg, Bg // 2)
+        codes[:Bg // 2] = genome[starts[:, None] + np.arange(Lg)[None, :]]
+        batches.append((codes, rng.random((Bg, Lg - k + 1)) < good_frac))
+    return batches
+
+
+def _numpy_count(batches, k):
+    from kmernator_tpu_torch.ops.kmer import extract_kmers_flat
+    from kmernator_tpu_torch.parallel.spectrum import pack_keys
+    keys = []
+    for codes, good in batches:
+        Bg, Lg = codes.shape
+        canon, _, _, _ = extract_kmers_flat(
+            codes.reshape(-1), np.arange(0, (Bg + 1) * Lg, Lg), k)
+        keys.append(pack_keys(canon)[good.reshape(-1)])
+    uniq, counts = np.unique(np.concatenate(keys), return_counts=True)
+    return dict(zip(uniq.tolist(), counts.tolist()))
+
+
+GREW = re.compile(r"mesh shard table grew to (\d+) rows/device "
+                  r"\(driving rows (\d+) x(\d)\)")
+
+
+def _drive_grow(batches, k, capacity, max_capacity, capfd,
+                drain_threshold=0):
+    """Feed both classes; after every drain the capacity, the purged
+    singletons and the table (keys, counts and weights, which are whole
+    numbers here) are equal. Returns both spectra and the growth steps,
+    (rows, driving rows, headroom) from each one's debug log, equal."""
+    from kmernator_tpu.utils.logging import Log as JaxLog
+    from kmernator_tpu_torch.utils.logging import Log
+    jsp = JaxSpectrum(jax_make_mesh(1), k, capacity=capacity,
+                      max_capacity=max_capacity,
+                      drain_threshold=drain_threshold)
+    tsp = ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), k,
+                                   capacity=capacity,
+                                   max_capacity=max_capacity,
+                                   drain_threshold=drain_threshold)
+    lengths = np.full(batches[0][0].shape[0], batches[0][0].shape[1],
+                      np.int32)
+    steps = ([], [])
+    levels = (JaxLog.debug_level, Log.debug_level)
+    JaxLog.debug_level = Log.debug_level = 1
+    try:
+        for batch in batches + [None]:
+            for sp, log in zip((jsp, tsp), steps):
+                capfd.readouterr()
+                if batch is None:   # the last drain, as finalize does
+                    sp._drain()
+                else:
+                    sp.add_batch(batch[0], batch[1], lengths)
+                log += GREW.findall(capfd.readouterr().err)
+            assert (len(jsp._staged) == 0) == (len(tsp._staged) == 0)
+            assert tsp.cap == jsp.cap and tsp.drain_threshold == \
+                jsp.drain_threshold
+            if not tsp._staged:
+                assert tsp.purged_singletons == jsp.purged_singletons
+                jt, tt = _jax_tables(jsp), tsp.to_numpy_tables()
+                assert all(np.array_equal(a, b) for a, b in zip(jt, tt))
+    finally:
+        JaxLog.debug_level, Log.debug_level = levels
+    assert steps[0] == steps[1]
+    return jsp, tsp, [(int(c), int(r), int(h)) for c, r, h in steps[1]]
+
+
+def test_grow_on_pressure_follows_jax(capfd):
+    """The D = 1 counterpart of the JAX grow test: the table starts at
+    1,024 rows, grows 4x whenever a drain could overfill it (headroom 1,
+    before the drain) or leaves it over half full (headroom 2, after it),
+    purges nothing, and ends as the numpy count. Each batch drains (a
+    threshold of one batch's rows), so that both kinds of step occur."""
+    k = 31
+    batches = _grow_batches(11, good_frac=0.8)
+    jsp, tsp, steps = _drive_grow(batches, k, 1024, 1 << 20, capfd,
+                                  drain_threshold=256 * (64 - k + 1))
+    caps = [1024] + [c for c, _, _ in steps]
+    assert caps == [1024 * 4 ** i for i in range(len(caps))]
+    assert len(steps) >= 3 and tsp.drains == len(batches)
+    assert {h for _, _, h in steps} == {1, 2}
+    assert tsp.purged_singletons == jsp.purged_singletons == 0
+    keys, counts = tsp.finalize(min_depth=1)
+    from kmernator_tpu_torch.parallel.spectrum import pack_keys
+    assert dict(zip(pack_keys(keys).tolist(), counts.tolist())) == \
+        _numpy_count(batches, k)
+
+
+def test_grow_stops_at_max_capacity_and_purges_like_jax(capfd):
+    """A ceiling of 20,000 rows, under the distinct keys: the last step
+    pads only to the ceiling, and from there both drains purge the same
+    singletons and keep the same table."""
+    k = 31
+    jsp, tsp, steps = _drive_grow(_grow_batches(12), k, 1024, 20000, capfd)
+    assert [c for c, _, _ in steps] == [4096, 16384, 20000]
+    assert tsp.drain_threshold == 10000
+    assert tsp.purged_singletons == jsp.purged_singletons > 0
+    assert int((tsp.table_counts > 0).sum()) == 20000
+
+
+def test_pre_drain_grow_at_headroom_one(capfd):
+    """A drain threshold set by the caller holds every batch until the last
+    drain, which must grow first (headroom 1: every real staged row may be
+    a new key) from 1,024 rows past twice the staged rows, so that it
+    purges nothing; the caller's threshold is kept."""
+    k = 45
+    batches = _grow_batches(13, n=3, k=k)
+    staged = 3 * 256 * (64 - k + 1)
+    jsp, tsp, steps = _drive_grow(batches, k, 1024, 1 << 20, capfd,
+                                  drain_threshold=10 ** 9)
+    assert steps == [(4096, 2 * staged + 1, 1), (16384, 2 * staged + 1, 1),
+                     (65536, 2 * staged + 1, 1)]
+    assert tsp.drains == 1 and tsp.drain_threshold == 10 ** 9
+    assert tsp.purged_singletons == jsp.purged_singletons == 0
+    keys, counts = tsp.finalize(min_depth=1)
+    from kmernator_tpu_torch.parallel.spectrum import pack_keys
+    assert dict(zip(pack_keys(keys).tolist(), counts.tolist())) == \
+        _numpy_count(batches, k)
+
+
+def test_fixed_capacity_never_grows(capfd):
+    """max_capacity == 0 (every --mesh 1 path but the distributed engine):
+    the capacity and the threshold stay, and the drain purges instead."""
+    k = 31
+    jsp, tsp, steps = _drive_grow(_grow_batches(12, n=4), k, 4096, 0, capfd)
+    assert steps == [] and tsp.cap == 4096 and tsp.drain_threshold == 2048
+    assert tsp.purged_singletons == jsp.purged_singletons > 0

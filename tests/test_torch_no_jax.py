@@ -2,7 +2,8 @@
 interpreter imports every module of the port and runs the port's
 FilterReads CLI on its three engines (host, --mesh 1, --streaming --mesh
 1) on the CPU, the in-memory --mesh 1 with the on-device variant purge,
-and both --mesh 1 paths at k = 33, the MeraculousCounter CLI on its
+both --mesh 1 paths at k = 33, the `--streaming --distributed X --nprocs
+1` engine, the MeraculousCounter CLI on its
 three engines (host, --streaming, --mesh 1), the nucleating assembler on
 its three matchers (host, --kmer-size 0, --mesh 1) and the contig
 extender, then
@@ -41,7 +42,10 @@ for name, extra, k in (
         ("v", ["--mesh", "1", "--variant-sigmas", "2",
                "--min-variant-kmer-depth", "3"], "31"),
         ("w", ["--mesh", "1"], "33"),
-        ("x", ["--streaming", "--mesh", "1"], "33")):
+        ("x", ["--streaming", "--mesh", "1"], "33"),
+        ("d", ["--streaming", "--streaming-chunk-mb", "0.005",
+               "--distributed", "127.0.0.1:1", "--nprocs", "1",
+               "--mesh-batch", "32"], "31")):
     assert run(base + extra + ["--out", os.path.join(d, name), k,
                                inp]) == 0
     assert os.path.getsize(os.path.join(d, name + "-MinDepth2-in.fastq")) > 0
@@ -102,7 +106,8 @@ def test_no_source_imports_the_jax_package():
                 "parallel/mesh.py", "apps/nucleating_assembler.py",
                 "apps/contig_extender.py", "parallel/dist_match.py",
                 "ops/align.py", "ops/extend.py", "ops/match.py",
-                "ops/vmatch.py", "ops/external.py", "utils/timers.py"):
+                "ops/vmatch.py", "ops/external.py", "utils/timers.py",
+                "parallel/multihost.py"):
         assert os.path.join(REPO, "kmernator_tpu_torch", new) in sources
     found = []
     for path in sources:
