@@ -73,6 +73,32 @@ started together) and drives the port's paths on the card:
      wall time, the lookups' device time (CUDA events), peak device memory,
      the port's host seconds by step and reads/s beside the host engine
      and `--streaming --mesh 1`.
+ 14. TnfDistance through its CLI entry point
+     (`kmernator_tpu_torch.apps.tnf_distance.run`) on 4,096 contigs of
+     2,000-10,000 bp from 16 seeded genomes of GC 30-70%: at --device cuda
+     (its distance matrix a float32 torch.matmul on the card, TF32 off) and
+     --device cpu, and the JAX app as a separate program (the oracle kind,
+     float32 jnp.matmul or the JAX app's float64 numpy fallback where jax
+     does not import, is printed): the vectors table byte-identical, every
+     distance within 4.0e-3 of the JAX app's and within 1.0e-4 pairwise
+     between the three (a TF32 product of the same vectors must fall past
+     1.0e-4), the clusters the JAX ones
+     but for pairs within that bound of the threshold; each engine's wall
+     time, the matmul's device time (CUDA events) and peak device memory;
+ 15. BamSort and FilterAndSortSam (`kmernator_tpu_torch.apps.bam_sort.run`,
+     `.filter_and_sort_sam.run`) on 1,000,000 seeded records of 150 bp on
+     20 references: the host engine byte-identical to the JAX apps run as
+     separate programs, with BAM and SAM output, both unmapped outputs
+     and --keep-unmapped-paired-read 1 and 0, and `--exclude-flags 4
+     --min-mapq 20`; `--distributed 127.0.0.1:<port> --nprocs 2` (two gloo
+     processes) with the one-process header and record stream;
+ 16. the small apps on phase 5's input: fastq2fasta (plain, --split-pairs
+     1, --write-qual 1), randomly_sample, split_sequence (--num-files 4,
+     every --file-num) and compare_spectrums (against itself and against
+     a second input, the generator's at seed 8),
+     each byte-identical to the JAX app run as a
+     separate program; estimate_size on the port alone (its JAX app
+     imports jax). Phases 14-16 launch no kernel of csrc/.
 Phase 3 also holds the kernel's two- and three-lane instantiations
 (k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
 and times them beside the one-lane kernel.
@@ -113,6 +139,19 @@ SOURCES = ("run_length", "merge_sort", "hash_insert")
 HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
 ASM_ITERATIONS = 5
 K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
+FP32_FLOPS = 67e12                   # H100 SXM data sheet, no tensor cores
+TNF_CONTIGS, TNF_GENOMES, TNF_GENOME_BP = 4096, 16, 1_600_000
+TNF_BOUND = 4.0e-3      # ~ sqrt(2 * 136 * 2^-24): float32 sums near g = 1
+# Sound float32 runs differ by far less than that worst case (0.0 at the
+# files' 6 digits between float32 engines, 1.3e-5 against float64 on this
+# input); a TF32 product by about 4.6e-3. The gaps are held to this limit,
+# and a TF32 product of the same vectors must fall past it.
+TNF_SOUND = 1.0e-4
+TNF_THRESHOLD = 0.175   # TnfDistance's --cluster-threshold-distance
+BAM_RECORDS, BAM_READ_LEN = 1_000_000, 150
+# the JAX BamSort's gzip.decompress copies the rest of the stream at each
+# BGZF block, so its oracle runs take the first 125,000 records (33 MB)
+BAM_ORACLE_RECORDS = 125_000
 # the earlier designs' times, from this script on an NVIDIA H100 80GB HBM3 at
 # 700.00 W: the bitonic local sort, the hash with separate key and count
 # arrays, the two-launch run-length kernel (tile scan, then one carry-fix
@@ -309,13 +348,13 @@ def phase_lanes(rl, cases, gen, times) -> int:
 
 
 def generate(path: str, genome_mb: str, genomes: str = "20",
-             coverage: str = "20") -> int:
+             coverage: str = "20", seed: str = "7") -> int:
     t0 = time.perf_counter()
     subprocess.run([sys.executable, "-m",
                     "kmernator_tpu_torch.apps.generate_metagenome",
                     "--genomes", genomes, "--total-genome-mb", genome_mb,
                     "--coverage", coverage,
-                    "--read-length", "150", "--seed", "7", "--out", path],
+                    "--read-length", "150", "--seed", seed, "--out", path],
                    check=True, env=env_with_root())
     with open(path, "rb") as f:
         n_reads = sum(chunk.count(b"\n") for chunk in
@@ -1343,6 +1382,522 @@ def phase_hash(hi, smi: str):
             "real": real, "bench": bench}
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_app(module: str, args, port: bool, **env) -> float:
+    """One app run: the port's `run` in this process, on the card, or the
+    JAX app as a separate program (with `env` added to its environment).
+    Returns its wall seconds; a non-zero exit fails the phase."""
+    t0 = time.perf_counter()
+    if port:
+        import importlib
+        app = importlib.import_module("kmernator_tpu_torch.apps." + module)
+        rc = app.run(["--device", "cuda"] + list(args))
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise SystemExit("port %s %s exited %d" % (module, args, rc))
+    else:
+        proc = subprocess.run([sys.executable, "-m",
+                               "kmernator_tpu.apps." + module] + list(args),
+                              env=env_with_root(**env), capture_output=True)
+        if proc.returncode != 0:
+            raise SystemExit("JAX %s %s exited %d:\n%s"
+                             % (module, args, proc.returncode,
+                                proc.stderr.decode()[-3000:]))
+    return time.perf_counter() - t0
+
+
+def read_output(path: str) -> bytes:
+    """A file's bytes; a .gz after decompression (gzip stamps its header
+    with the time of writing)."""
+    from kmernator_tpu_torch.io.bam import bgzf_decompress
+    with open(path, "rb") as f:
+        data = f.read()
+    return bgzf_decompress(data) if path.endswith(".gz") else data
+
+
+def same_outputs(name: str, port_prefix: str, jax_prefix: str) -> list:
+    """Every file named after the port's prefix byte-identical to the JAX
+    app's of the same suffix, and the same set of files. Deletes both."""
+    mine, want = outputs(port_prefix), outputs(jax_prefix)
+    if not want or set(mine) != set(want):
+        raise SystemExit("%s: output files differ: %s vs %s"
+                         % (name, sorted(mine), sorted(want)))
+    for suffix in want:
+        a, b = read_output(mine[suffix]), read_output(want[suffix])
+        if a != b or not a:
+            raise SystemExit("%s: %s differs from the JAX app's (%d and %d "
+                             "bytes)" % (name, suffix, len(a), len(b)))
+    for path in list(mine.values()) + list(want.values()):
+        os.remove(path)
+    return sorted(want)
+
+
+def tnf_input(path: str, seed: int = 14) -> int:
+    """TNF_CONTIGS contigs of 2,000-10,000 bp, each a piece of one of
+    TNF_GENOMES seeded genomes of GC content 30% to 70%. Returns the
+    bases written."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    genomes = [acgt[rng.choice(4, TNF_GENOME_BP, p=[(1 - gc) / 2, gc / 2,
+                                                    gc / 2, (1 - gc) / 2])]
+               for gc in np.linspace(0.30, 0.70, TNF_GENOMES)]
+    total = 0
+    with open(path, "wb") as f:
+        for i in range(TNF_CONTIGS):
+            g = int(rng.integers(TNF_GENOMES))
+            L = int(rng.integers(2000, 10001))
+            s = int(rng.integers(0, TNF_GENOME_BP - L))
+            f.write(b">contig%04d genome=%02d\n%s\n"
+                    % (i, g, genomes[g][s:s + L].tobytes()))
+            total += L
+    return total
+
+
+def inter_distances(path: str):
+    """The names and the [n, n] float64 distances (lower triangle
+    mirrored, zero diagonal) of a TnfDistance --inter-distance-file."""
+    with open(path, "rb") as f:
+        lines = f.read().splitlines()
+    d = np.zeros((len(lines), len(lines)))
+    names = []
+    for i, line in enumerate(lines):
+        parts = line.split(b"\t")
+        names.append(parts[0])
+        if i:
+            d[i, :i] = np.array(parts[1:], dtype=np.float64)
+    return names, d + d.T
+
+
+def check_clusters(name: str, path: str, names, dj: np.ndarray,
+                   thr: float) -> int:
+    """The port's clusters lie between the single-link clusters of the JAX
+    distances at thr - TNF_BOUND and at thr + TNF_BOUND: a pair within the
+    bound of the threshold may link either way, no other pair. Returns the
+    number of pairs within the bound."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    index = {nm: i for i, nm in enumerate(names)}
+    label = np.full(len(names), -1)
+    with open(path, "rb") as f:
+        for line in f.read().splitlines():
+            g, nm = line.split(b"\t")
+            label[index[nm]] = int(g)
+    if (label < 0).any():
+        raise SystemExit("%s: a contig is in no cluster" % name)
+
+    def components(limit: float) -> np.ndarray:
+        adj = csr_matrix(np.triu(dj <= limit, 1))
+        return connected_components(adj, directed=False)[1]
+
+    def refines(fine, coarse) -> bool:
+        return len(np.unique(np.stack([fine, coarse], 1), axis=0)) == len(
+            np.unique(fine))
+
+    sure, maybe = components(thr - TNF_BOUND), components(thr + TNF_BOUND)
+    if not (refines(sure, label) and refines(label, maybe)):
+        raise SystemExit("%s: the clusters disagree with the JAX distances "
+                         "past the bound" % name)
+    iu = np.triu_indices(len(dj), 1)
+    return int((np.abs(dj[iu] - thr) <= TNF_BOUND).sum())
+
+
+def tf32_control_gap(a: torch.Tensor) -> float:
+    """The largest off-diagonal gap between the distances sqrt(max(0, 2 -
+    2 g)) of g = a a^T in float32 and with TF32 on."""
+    def d() -> torch.Tensor:
+        g = torch.matmul(a, a.T)
+        return torch.sqrt(torch.clamp(2.0 - 2.0 * g, min=0.0))
+    exact = d()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        gap = (d() - exact).abs_()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    gap.fill_diagonal_(0.0)
+    return float(gap.max())
+
+
+def phase_tnf(smi: str):
+    """TnfDistance on TNF_CONTIGS contigs through its CLI entry point: the
+    port at --device cuda and at --device cpu in this process, the JAX app
+    as a separate program on the CPU (JAX_PLATFORMS=cpu, as the CPU tests
+    run it), each writing the vectors table, the inter-distance file and
+    the clusters at the default threshold; the run's Gram matmul timed
+    alone on the card by CUDA events. Where jax finds a GPU, the JAX app
+    also runs there, at XLA's default matmul precision, and its distances'
+    gap to the port's is printed, not held to the bound: XLA takes float32
+    matmuls on an H100 through TF32 by default."""
+    from kmernator_tpu_torch.apps import tnf_distance as tnf
+    from kmernator_tpu_torch.io.reads import load_reads
+    fa = os.path.join(WORK, "tnf%d.fa" % TNF_CONTIGS)
+    t0 = time.perf_counter()
+    bases = tnf_input(fa)
+    log("tnf: %d contigs, %d bp, from %d genomes of GC 30-70%% in %.1f s"
+        % (TNF_CONTIGS, bases, TNF_GENOMES, time.perf_counter() - t0))
+    probe = subprocess.run(
+        [sys.executable, "-c", "import jax; print(jax.__version__, "
+         "jax.default_backend())"], capture_output=True, text=True)
+    jax_backend = probe.stdout.split() if probe.returncode == 0 else None
+    oracle = ("float32 jnp.matmul on the CPU (jax %s)" % jax_backend[0]
+              if jax_backend else "float64 numpy a @ a.T (the JAX app's "
+              "fallback: jax does not import on this host)")
+    engines = ["cuda", "cpu", "jax"]
+    if jax_backend and jax_backend[1] == "gpu":
+        engines.append("jax-gpu")
+    walls, files, peak = {}, {}, 0.0
+    for engine in engines:
+        p = os.path.join(WORK, "tnf-" + engine)
+        files[engine] = [p + ".vec", p + ".inter", p + ".cl"]
+        args = ["--inter-distance-file", files[engine][1], "--cluster-file",
+                files[engine][2], "--out", files[engine][0], fa]
+        if engine.startswith("jax"):
+            walls[engine] = run_app("tnf_distance", args, False, **(
+                {"JAX_PLATFORMS": "cpu"} if engine == "jax" else {}))
+            continue
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if tnf.run(["--device", engine] + args) != 0:
+            raise SystemExit("tnf: the port at --device %s exited non-zero"
+                             % engine)
+        torch.cuda.synchronize()
+        walls[engine] = time.perf_counter() - t0
+        if engine == "cuda":
+            peak = torch.cuda.max_memory_allocated() / 2**20
+    vec = {e: read_output(files[e][0]) for e in walls}
+    if not vec["jax"] or any(v != vec["jax"] for v in vec.values()):
+        raise SystemExit("tnf: the vectors tables differ")
+    mats = {e: inter_distances(files[e][1]) for e in walls}
+    names = mats["jax"][0]
+    if len(names) != TNF_CONTIGS or any(mats[e][0] != names for e in walls):
+        raise SystemExit("tnf: the inter-distance files name other contigs")
+    gaps = {a + "-" + b: float(np.abs(mats[a][1] - mats[b][1]).max())
+            for a, b in (("cuda", "jax"), ("cpu", "jax"), ("cuda", "cpu"))}
+    tf32 = None
+    if "jax-gpu" in mats:   # printed, not held to the bound
+        gap = np.abs(mats["cuda"][1] - mats["jax-gpu"][1])
+        tf32 = {"max_gap": float(gap.max()), "past_bound": int(
+            (np.triu(gap, 1) > TNF_BOUND).sum())}
+    for limit in (TNF_BOUND, TNF_SOUND):
+        if max(gaps.values()) > limit:
+            i, j = np.unravel_index(np.abs(mats["cuda"][1] - mats["jax"][1])
+                                    .argmax(), (TNF_CONTIGS, TNF_CONTIGS))
+            raise SystemExit(
+                "tnf: distances differ by %s, past %.1e; the widest at %s, "
+                "%s: %s" % (gaps, limit, names[i].decode(), names[j].decode(),
+                            {e: mats[e][1][i, j] for e in walls}))
+    dj = mats["jax"][1]
+    near = {e: check_clusters("tnf-" + e, files[e][2], names, dj,
+                              TNF_THRESHOLD) for e in ("cuda", "cpu")}
+    cl = {e: read_output(files[e][2]) for e in walls}
+    n_clusters = len(set(line.split(b"\t")[0]
+                         for line in cl["cuda"].splitlines()))
+    # the run's Gram matmul alone, on its own inputs
+    tnfs, _ = tnf.tnf_vectors(load_reads([fa]), 4)
+    norms = np.sqrt((tnfs * tnfs).sum(axis=1))
+    a = torch.from_numpy(tnfs / np.where(norms == 0, 1.0, norms)[:, None]
+                         ).to("cuda", torch.float32)
+    ms = cuda_ms(lambda: torch.matmul(a, a.T), 50)
+    control = tf32_control_gap(a)
+    if control <= TNF_SOUND:
+        raise SystemExit("tnf: a TF32 product's distances lie within %.1e "
+                         "of the float32 ones (%.3g): the limit cannot see "
+                         "TF32" % (TNF_SOUND, control))
+    n, m = a.shape
+    flops = 2.0 * n * n * m
+    bound = max(flops / FP32_FLOPS, 4.0 * (n * m + n * n)
+                / HBM_BYTES_PER_S) * 1e3
+    log("tnf: wall time, port --device cuda %.2f s (peak device memory "
+        "%.1f MiB), port --device cpu %.2f s, JAX app on the CPU %.2f s%s "
+        "[%s]" % (walls["cuda"], peak, walls["cpu"], walls["jax"],
+                  ", on the GPU %.2f s" % walls["jax-gpu"] if tf32 else "",
+                  smi))
+    if tf32:
+        log("tnf: the JAX app on the GPU (XLA's default precision, TF32): "
+            "largest distance gap to the port's %.6g, %d of %d distances "
+            "past %.1e" % (tf32["max_gap"], tf32["past_bound"],
+                           TNF_CONTIGS * (TNF_CONTIGS - 1) // 2, TNF_BOUND))
+    log("tnf: TF32 control (the same vectors' product with TF32 on, in "
+        "memory): largest distance gap to float32 %.6g, past the limit "
+        "%.1e" % (control, TNF_SOUND))
+    log("tnf: vectors tables byte-identical on every engine (%d "
+        "bytes); largest distance gaps %s, held to %.1e (worst-case bound "
+        "%.1e); JAX oracle: %s; %d "
+        "clusters at %.3f, byte-identical to the JAX app's: cuda %s, cpu "
+        "%s; pairs within the bound of the threshold %s"
+        % (len(vec["jax"]), json.dumps(gaps), TNF_SOUND, TNF_BOUND, oracle,
+           n_clusters,
+           TNF_THRESHOLD, cl["cuda"] == cl["jax"], cl["cpu"] == cl["jax"],
+           json.dumps(near)))
+    log("tnf: the [%d, %d] float32 Gram matmul on the card %.4f ms (CUDA "
+        "events, 50 calls) = %.1f TFLOP/s; bound %.4f ms (float32 at %.0f "
+        "TFLOP/s, no TF32) [%s]" % (n, m, ms, flops / ms / 1e9, bound,
+                                    FP32_FLOPS / 1e12, smi))
+    for paths in files.values():
+        for path in paths:
+            os.remove(path)
+    os.remove(fa)
+    return {"contigs": TNF_CONTIGS, "bases": bases, "oracle": oracle,
+            "gaps": gaps, "clusters": n_clusters,
+            "near_threshold_pairs": near,
+            "clusters_identical": {e: cl[e] == cl["jax"]
+                                   for e in ("cuda", "cpu")},
+            "matmul_ms": ms, "matmul_bound_ms": bound, "jax_gpu_tf32": tf32,
+            "tf32_control_gap": control,
+            "cuda_peak_mib": peak, **{e + "_s": walls[e] for e in walls}}
+
+
+def bam_input(n: int, seed: int = 15):
+    """n seeded records of BAM_READ_LEN bp on 20 references sized as
+    generate_metagenome sizes the streaming input's 20 genomes: both
+    strands, read1 and read2, MAPQ 0-60, 2% unmapped, half of those
+    placed at their mate. Encoded as io/bam.py parse_sam encodes SAM text,
+    and held to it on the first 2,000 records' SAM lines. Returns the
+    port's BamData."""
+    import struct
+    from kmernator_tpu_torch.io import bam
+    raw = np.exp(np.random.default_rng(7).uniform(0, 2.5, 20))
+    lens = (raw / raw.sum() * 6e6).astype(np.int64)
+    rng = np.random.default_rng(seed)
+    L = BAM_READ_LEN
+    ref = rng.choice(20, n, p=lens / lens.sum())
+    pos0 = rng.integers(0, lens[ref] - L)
+    flag = (0x1 | np.where(rng.random(n) < 0.5, 0x40, 0x80)
+            | np.where(rng.random(n) < 0.5, 0x10, 0))
+    mapq = rng.integers(0, 61, n)
+    unmapped = rng.random(n) < 0.02
+    placed = rng.random(n) < 0.5
+    flag = np.where(unmapped, flag | 0x4, flag)
+    mapq = np.where(unmapped, 0, mapq)
+    ref = np.where(unmapped & ~placed, -1, ref)
+    pos0 = np.where(unmapped & ~placed, -1, pos0)
+    tlen = np.where(rng.random(n) < 0.5, 1, -1) * rng.integers(200, 600, n)
+    tlen = np.where(ref < 0, 0, tlen)
+    codes = rng.integers(0, 4, (n, L))
+    nibble = np.array([1, 2, 4, 8], np.uint8)[codes]   # "=ACMGRSVTWYHKDBN"
+    packed = (nibble[:, 0::2] << 4) | nibble[:, 1::2]
+    quals = rng.integers(2, 41, (n, L)).astype(np.uint8)
+    cigar = struct.pack("<I", L << 4)
+    bd = bam.BamData(header_text=b"@HD\tVN:1.6\tSO:unsorted\n" + b"".join(
+        b"@SQ\tSN:genome%02d\tLN:%d\n" % (i, x) for i, x in enumerate(lens)),
+        ref_names=[b"genome%02d" % i for i in range(20)],
+        ref_lens=[int(x) for x in lens])
+    for i in range(n):
+        name = b"read%07d" % (i // 2)
+        mapped = not unmapped[i]
+        end = int(pos0[i]) + (L if mapped else 1)
+        bd.records.append(struct.pack(
+            "<iiBBHHHiiii", int(ref[i]), int(pos0[i]), len(name) + 1,
+            int(mapq[i]), bam._reg2bin(max(int(pos0[i]), 0), max(end, 1)),
+            1 if mapped else 0, int(flag[i]), L, int(ref[i]), int(pos0[i]),
+            int(tlen[i])) + name + b"\x00" + (cigar if mapped else b"")
+            + packed[i].tobytes() + quals[i].tobytes())
+    bd.ref_id, bd.pos, bd.flag = (ref.astype(np.int32),
+                                  pos0.astype(np.int32),
+                                  flag.astype(np.int32))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    sam = [bd.header_text]
+    for i in range(min(n, 2000)):
+        rname = b"*" if ref[i] < 0 else bd.ref_names[ref[i]]
+        sam.append(b"\t".join([
+            b"read%07d" % (i // 2), b"%d" % flag[i], rname,
+            b"%d" % (pos0[i] + 1), b"%d" % mapq[i],
+            b"*" if unmapped[i] else b"%dM" % L,
+            b"*" if ref[i] < 0 else b"=", b"%d" % (pos0[i] + 1),
+            b"%d" % tlen[i], acgt[codes[i]].tobytes(),
+            (quals[i] + 33).tobytes()]) + b"\n")
+    if bam.parse_sam(b"".join(sam)).records != bd.records[:2000]:
+        raise SystemExit("bam: the records are not parse_sam's encoding")
+    return bd
+
+
+def streams(prefix: str) -> list:
+    """A BamSort run's decompressed BAM and unmapped outputs."""
+    from kmernator_tpu_torch.io.bam import bgzf_decompress
+    return [bgzf_decompress(read_output(prefix + ".bam"))] + [
+        read_output(prefix + s) for s in (".unmapped.fastq.gz",
+                                          ".pairs.fastq.gz")]
+
+
+def bgzf_blocks(path: str) -> list:
+    """The decompressed size of each BGZF block of a file."""
+    import struct
+    with open(path, "rb") as f:
+        data = f.read()
+    sizes, off = [], 0
+    while off < len(data):
+        size = struct.unpack_from("<H", data, off + 16)[0] + 1
+        sizes.append(struct.unpack_from("<I", data, off + size - 4)[0])
+        off += size
+    return sizes
+
+
+def phase_bam(smi: str):
+    """BamSort and FilterAndSortSam through their CLI entry points. On
+    BAM_ORACLE_RECORDS records, the port in this process (the host
+    engine) against the JAX apps run as separate programs, byte-identical:
+    BamSort with BAM and SAM output, both unmapped outputs and
+    --keep-unmapped-paired-read 1 and 0, FilterAndSortSam --exclude-flags
+    4 --min-mapq 20. On BAM_RECORDS records, the port in one process and
+    at --distributed --nprocs 2 (two gloo processes): the same header and
+    record stream."""
+    from kmernator_tpu_torch.io import bam
+    t0 = time.perf_counter()
+    bd = bam_input(BAM_RECORDS)
+    inp = os.path.join(WORK, "aln.bam")
+    with open(inp, "wb") as f:
+        f.write(bam.write_bam(bd))
+    header = bam.header_bytes(bd)
+    cut = os.path.join(WORK, "aln-oracle.bam")
+    bd.records = bd.records[:BAM_ORACLE_RECORDS]
+    for col in ("ref_id", "pos", "flag"):
+        setattr(bd, col, getattr(bd, col)[:BAM_ORACLE_RECORDS])
+    with open(cut, "wb") as f:
+        f.write(bam.write_bam(bd))
+    del bd
+    log("bam: %d records of %d bp on 20 references, %d bytes of BAM, and "
+        "its first %d records, %d bytes, in %.1f s"
+        % (BAM_RECORDS, BAM_READ_LEN, os.path.getsize(inp),
+           BAM_ORACLE_RECORDS, os.path.getsize(cut),
+           time.perf_counter() - t0))
+    walls = {}
+    unmapped_args = lambda p, keep: [
+        "--unmapped-reads", p + ".unmapped.fastq.gz",
+        "--unmapped-read-pairs", p + ".pairs.fastq.gz",
+        "--keep-unmapped-paired-read", keep]
+    for out_ext, keep in (("bam", "1"), ("sam", "0")):
+        name = "sort-%s-keep%s" % (out_ext, keep)
+        for engine in ("port", "jax"):
+            p = os.path.join(WORK, "%s-%s" % (engine, name))
+            walls["%s-%s-%d" % (name, engine, BAM_ORACLE_RECORDS)] = run_app(
+                "bam_sort", unmapped_args(p, keep) + [p + "." + out_ext, cut],
+                engine == "port")
+        same_outputs("bam " + name, os.path.join(WORK, "port-" + name),
+                     os.path.join(WORK, "jax-" + name))
+    name = "filter-exclude4-mapq20"
+    for engine in ("port", "jax"):
+        walls["%s-%s-%d" % (name, engine, BAM_ORACLE_RECORDS)] = run_app(
+            "filter_and_sort_sam", [
+                "--exclude-flags", "4", "--min-mapq", "20",
+                os.path.join(WORK, "%s-%s.bam" % (engine, name)), cut],
+            engine == "port")
+    with open(os.path.join(WORK, "port-%s.bam" % name), "rb") as f:
+        kept = bam.parse_bam(f.read()).n
+    same_outputs("bam " + name, os.path.join(WORK, "port-" + name),
+                 os.path.join(WORK, "jax-" + name))
+    os.remove(cut)
+    # all the records: one process, then two gloo processes
+    one = os.path.join(WORK, "one")
+    walls["sort-bam-keep1-port-%d" % BAM_RECORDS] = run_app(
+        "bam_sort", unmapped_args(one, "1") + [one + ".bam", inp], True)
+    two = os.path.join(WORK, "two")
+    coord = "127.0.0.1:%d" % free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "kmernator_tpu_torch.apps.bam_sort",
+         "--device", "cuda", "--distributed", coord, "--nprocs", "2",
+         "--procid", str(r)] + unmapped_args(two, "1") + [two + ".bam", inp],
+        env=env_with_root(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for r in range(2)]
+    try:
+        errs = [q.communicate(timeout=600)[1] for q in procs]
+    finally:
+        for q in procs:
+            q.kill()
+            q.wait()
+    walls["sort-bam-keep1-port-nprocs2-%d" % BAM_RECORDS] = (
+        time.perf_counter() - t0)
+    if any(q.returncode != 0 for q in procs):
+        raise SystemExit("bam: --nprocs 2 failed:\n%s" % b"\n".join(
+            e[-2000:] for e in errs).decode())
+    if streams(two) != streams(one):
+        raise SystemExit("bam: --nprocs 2 gives another header or record "
+                         "stream than one process")
+    blocks = [bgzf_blocks(x + ".bam") for x in (one, two)]
+    if blocks[1][0] != len(header) or blocks[1][-1] != 0:
+        raise SystemExit("bam: --nprocs 2 wrote no header block or no EOF "
+                         "block of its own")
+    for path in list(outputs(one).values()) + list(outputs(two).values()):
+        os.remove(path)
+    os.remove(inp)
+    log("bam: %d records: byte-identical to the JAX apps, BamSort with BAM "
+        "output and --keep-unmapped-paired-read 1, with SAM output and 0 "
+        "(both with --unmapped-reads and --unmapped-read-pairs, compared "
+        "after gzip decompression), FilterAndSortSam --exclude-flags 4 "
+        "--min-mapq 20 (%d records kept)" % (BAM_ORACLE_RECORDS, kept))
+    log("bam: %d records: --nprocs 2 (gloo) gives the one-process header "
+        "and record stream, in %d BGZF blocks (the header its own block of "
+        "%d bytes) against one process's %d" % (
+            BAM_RECORDS, len(blocks[1]), len(header), len(blocks[0])))
+    log("bam: wall time %s [%s]" % (", ".join(
+        "%s %.2f s" % kv for kv in walls.items()), smi))
+    return {"records": BAM_RECORDS, "oracle_records": BAM_ORACLE_RECORDS,
+            "kept_by_filter": kept, "blocks": [len(b) for b in blocks],
+            "wall_s": walls}
+
+
+def phase_small_apps(fq: str, fq_other: str, smi: str):
+    """fastq2fasta (plain, --split-pairs 1, --write-qual 1),
+    randomly_sample, split_sequence (--num-files 4, every --file-num) and
+    compare_spectrums (the input against itself and against fq_other)
+    through their CLI entry points, each byte-identical to
+    the JAX app run as a separate program; estimate_size, whose JAX app
+    imports jax, on the port alone."""
+    runs = [("fastq2fasta", "plain", [], ""),
+            ("fastq2fasta", "split-pairs", ["--split-pairs", "1"], ""),
+            ("fastq2fasta", "write-qual", ["--write-qual", "1"], ""),
+            ("randomly_sample", "10000", ["--num-samples", "10000"],
+             ".fastq")]
+    runs += [("split_sequence", "file%d" % i, ["--num-files", "4",
+                                               "--file-num", str(i)],
+              ".fastq") for i in range(4)]
+    walls, parts, files = {}, [], {}
+    for module, tag, args, suffix in runs:
+        name = "%s-%s" % (module, tag)
+        for engine in ("port", "jax"):
+            p = os.path.join(WORK, "%s-%s" % (engine, name))
+            walls[name + "-" + engine] = run_app(
+                module, args + ["--out", p + suffix, fq], engine == "port")
+        if module == "split_sequence":
+            parts.append(read_output(os.path.join(WORK, "port-%s.fastq"
+                                                  % name)))
+        files[name] = same_outputs(name, os.path.join(WORK, "port-" + name),
+                                   os.path.join(WORK, "jax-" + name))
+    if b"".join(parts) != read_output(fq):
+        raise SystemExit("split_sequence: the four parts are not the input")
+    spectra = {}
+    for tag, ref in (("self", fq), ("other", fq_other)):
+        name = "compare_spectrums-" + tag
+        for engine in ("port", "jax"):
+            p = os.path.join(WORK, "%s-%s" % (engine, name))
+            walls[name + "-" + engine] = run_app(
+                "compare_spectrums", ["--out", p, "21", ref, fq],
+                engine == "port")
+        spectra[tag] = read_output(os.path.join(WORK, "port-" + name)
+                                   ).decode().splitlines()[-1]
+        same_outputs(name, os.path.join(WORK, "port-" + name),
+                     os.path.join(WORK, "jax-" + name))
+    p = os.path.join(WORK, "port-estimate_size")
+    walls["estimate_size-port"] = run_app("estimate_size", [
+        "--out", p, "21", fq], True)
+    estimate = dict(line.split("\t") for line in read_output(p).decode()
+                    .splitlines())
+    os.remove(p)
+    log("small apps: byte-identical to the JAX apps: %s; compare_spectrums "
+        "k=21 against itself: %s; against a second input: %s"
+        % (json.dumps(files), spectra["self"], spectra["other"]))
+    log("small apps: estimate_size (port only; its JAX app imports jax) "
+        "k=21: %s" % json.dumps(estimate))
+    log("small apps: wall time %s [%s]" % (", ".join(
+        "%s %.2f s" % kv for kv in walls.items()), smi))
+    return {"wall_s": walls, "estimate": estimate, "outputs": files}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1452,9 +2007,28 @@ def main() -> int:
         for path in outputs(r["host_out"]).values():
             os.remove(path)
     os.remove(fq256)
-    os.remove(fq32)
     log("phase 13 --streaming --distributed --nprocs 1 ok [%.1f s]"
         % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    rl.launches = 0
+    tnf_run = phase_tnf(smi)
+    log("phase 14 TnfDistance ok [%.1f s]" % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    bam_run = phase_bam(smi)
+    log("phase 15 BamSort and FilterAndSortSam ok [%.1f s]"
+        % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    fq_other = os.path.join(WORK, "meta32-seed8.fastq")
+    generate(fq_other, "0.75", seed="8")
+    small = phase_small_apps(fq32, fq_other, smi)
+    os.remove(fq_other)
+    os.remove(fq32)
+    if rl.launches:
+        raise SystemExit("phases 14-16 launched the run-length kernel")
+    log("phase 16 small apps ok [%.1f s]" % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer + dist
     launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
     by_lanes = {L: sum(r["by_lanes"][L] for r in runs) for L in (1, 2, 3)}
@@ -1481,6 +2055,8 @@ def main() -> int:
     log("assembler runs (no kernel launched): %s" % json.dumps({
         r["name"]: {key: v for key, v in r.items() if key != "name"}
         for r in asm}))
+    log("TnfDistance, BamSort and small-app runs (no kernel launched): %s"
+        % json.dumps({"tnf": tnf_run, "bam": bam_run, "small": small}))
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",

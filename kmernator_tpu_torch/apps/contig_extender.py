@@ -14,7 +14,7 @@ Usage:
 
 Copied for kmernator_tpu_torch from kmernator_tpu/apps/contig_extender.py.
 It differs from its source in its package imports and in taking `--device
-cuda|cpu` (default cuda; utils/device.py `resolve_device`, so cuda
+cuda|cpu` (default cuda; utils/device.py `take_device`, so cuda
 without a visible GPU raises) in place of `--jax-platform`. The app runs
 on the host whichever device is named.
 """
@@ -25,7 +25,7 @@ from typing import List
 
 from kmernator_tpu_torch.io.reads import load_reads
 from kmernator_tpu_torch.ops.extend import ExtendParams, extend_contigs
-from kmernator_tpu_torch.utils.device import resolve_device
+from kmernator_tpu_torch.utils.device import take_device
 from kmernator_tpu_torch.utils.logging import Log
 from kmernator_tpu_torch.utils.options import (GeneralOptions, KmerBaseOptions,
                                          DuplicateFilterOptions, compose)
@@ -51,12 +51,7 @@ def run(argv: List[str]) -> int:
     copts = ContigExtenderOptions()
     dopts = DuplicateFilterOptions()
     argv = ["--output-file" if a == "--out" else a for a in argv]
-    device_name = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        device_name = argv[i + 1]
-        argv = argv[:i] + argv[i + 2:]
-    resolve_device(device_name)
+    argv = take_device(argv)[1]
     compose([opts, kopts, copts, dopts], argv,
             positional=["kmer-size", "input-file"])
     Log.verbose_level = opts.verbose

@@ -19,6 +19,9 @@ Differences from the source:
 - `write_gathered_file` moves a part with `os.replace` and, where the part
   and the output lie on different filesystems (`EXDEV`), copies it and
   deletes the part; the source raises there.
+- `all_to_all_rows` is new: the exchange that the JAX module's callers
+  run as a `jax.lax.all_to_all` over `global_mesh` (one row a process,
+  so D is the number of processes; parallel/bam_exchange.py).
 - Not ported: `global_mesh`, `to_global` and `to_local` (at D = 1 the
   port's `parallel/mesh.py` `make_mesh` takes their place), and
   `load_partitioned_reads`, which comes with D > 1.
@@ -84,6 +87,18 @@ def allgather_host(x) -> np.ndarray:
     if process_count() == 1:
         return a
     return np.concatenate(list(_allgather(a)), axis=0)
+
+
+def all_to_all_rows(send: np.ndarray) -> np.ndarray:
+    """[P, ...] -> [P, ...]: row p of `send` goes to rank p, and row s of
+    the result came from rank s (one `all_to_all_single`; gloo takes any
+    dtype, uint8 bytes included). Every rank passes the same shape."""
+    if process_count() == 1:
+        return send
+    t = torch.from_numpy(np.ascontiguousarray(send))
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t)
+    return out.numpy()
 
 
 def allreduce_max_int(v: int) -> int:

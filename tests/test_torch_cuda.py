@@ -639,3 +639,55 @@ def test_assembler_device_flag_and_mesh_refusal(cuda_device, tmp_path):
     with pytest.raises(NotImplementedError, match="--mesh 2"):
         asm.run(["--device", "cuda", "--mesh", "2"] + args
                 + ["31", "missing.fq"])
+
+
+@pytest.mark.cuda
+def test_tnf_distances_on_the_card(cuda_device, tmp_path):
+    """TnfDistance's distance matrix on the card against the CPU: within
+    4.0e-3 (float32 sums of 136 unit-norm products in another order, near
+    g = 1) and within 1.0e-4 off the diagonal (sound float32 runs differ
+    by about 1e-5 there, TF32 by about 4.6e-3), with TF32 off and the float32 matmul precision "highest" at
+    the call, and refused with either changed; the app at --device cuda
+    writes the --device cpu vectors table byte for byte."""
+    from kmernator_tpu_torch.apps import tnf_distance as tnf
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    rng = np.random.default_rng(14)
+    gc = rng.uniform(0.3, 0.7, 2048)
+    probs = np.stack([(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2], 1)
+    counts = rng.poisson(40 * probs.repeat(34, axis=1)).astype(np.float64)
+    got = tnf.distances(counts, "EUCLIDEAN", cuda_device)
+    want = tnf.distances(counts, "EUCLIDEAN", torch.device("cpu"))
+    assert got.dtype == want.dtype == np.float32
+    diff = np.abs(got.astype(np.float64) - want)
+    assert diff.max() <= 4.0e-3
+    np.fill_diagonal(diff, 0.0)
+    assert diff.max() <= 1.0e-4
+    for turn_on in (lambda: setattr(torch.backends.cuda.matmul,
+                                    "allow_tf32", True),
+                    lambda: torch.set_float32_matmul_precision("high")):
+        turn_on()
+        try:
+            with pytest.raises(RuntimeError, match="without TF32"):
+                tnf.distances(counts, "EUCLIDEAN", cuda_device)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.set_float32_matmul_precision("highest")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    fa = tmp_path / "c.fa"
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    fa.write_bytes(b"".join(
+        b">c%d\n%s\n" % (i, acgt[rng.choice(4, 3000, p=probs[i])].tobytes())
+        for i in range(64)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = str(tmp_path / dev)
+        assert tnf.run(["--device", dev, "--inter-distance-file",
+                        p + ".inter", "--out", p + ".vec", str(fa)]) == 0
+        out[dev] = [open(p + s, "rb").read() for s in (".vec", ".inter")]
+    assert out["cuda"][0] == out["cpu"][0]
+    rows = [[r.split(b"\t") for r in out[d][1].splitlines()]
+            for d in ("cuda", "cpu")]
+    assert max(abs(float(a) - float(b)) for x, y in zip(*rows)
+               for a, b in zip(x[1:], y[1:])) <= 1.0e-4   # no diagonal

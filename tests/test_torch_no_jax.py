@@ -6,18 +6,21 @@ both --mesh 1 paths at k = 33, the `--streaming --distributed X --nprocs
 1` engine, the MeraculousCounter CLI on its
 three engines (host, --streaming, --mesh 1), the nucleating assembler on
 its three matchers (host, --kmer-size 0, --mesh 1) and the contig
-extender, then
-checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
+extender (and, in a second interpreter, the small apps: fastq2fasta,
+randomly_sample, split_sequence, compare_spectrums, estimate_size,
+tnf_distance, bam_sort with SAM and BAM output, filter_and_sort_sam),
+then checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
 loaded. And no source file of the port names the JAX package in an
 import, lazy ones inside functions included."""
 import os
 import re
+import signal
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SCRIPT = r"""
+PROLOGUE = r"""
 import os, pkgutil, sys, importlib
 import numpy as np
 import kmernator_tpu_torch
@@ -34,8 +37,11 @@ with open(os.path.join(d, "in.fastq"), "wb") as f:
         s = int(rng.integers(0, 4000 - 72))
         f.write(b"@r%03d\n%s\n+\n%s\n"
                 % (i, acgt[genome[s:s + 72]].tobytes(), b"H" * 72))
-base = ["--device", "cpu", "--min-read-length", "25"]
 inp = os.path.join(d, "in.fastq")
+"""
+
+ENGINES = r"""
+base = ["--device", "cpu", "--min-read-length", "25"]
 for name, extra, k in (
         ("h", [], "31"), ("m", ["--mesh", "1"], "31"),
         ("s", ["--streaming", "--mesh", "1"], "31"),
@@ -74,6 +80,44 @@ out = os.path.join(d, "ext.fa")
 assert ext_run(["--device", "cpu", "--contig-file", seeds, "--out", out,
                 "21", inp]) == 0
 assert open(out, "rb").read().count(b">") == 2
+"""
+
+SMALL_APPS = r"""
+from kmernator_tpu_torch.apps import (bam_sort, compare_spectrums,
+                                     estimate_size, fastq2fasta,
+                                     filter_and_sort_sam, randomly_sample,
+                                     split_sequence, tnf_distance)
+cpu = ["--device", "cpu"]
+p = lambda name: os.path.join(d, name)
+assert fastq2fasta.run(cpu + ["--out", p("f2f"), inp]) == 0
+assert randomly_sample.run(cpu + ["--num-samples", "5", "--out", p("rs.fq"),
+                                  inp]) == 0
+assert split_sequence.run(cpu + ["--num-files", "2", "--file-num", "1",
+                                 "--out", p("ss.fq"), inp]) == 0
+assert compare_spectrums.run(cpu + ["--out", p("cs"), "21", inp, inp]) == 0
+assert estimate_size.run(cpu + ["--sample-partitions", "3", "--out",
+                                p("es"), "21", inp]) == 0
+assert tnf_distance.run(cpu + ["--inter-distance-file", p("tnf.inter"),
+                               "--cluster-file", p("tnf.cl"), "--out",
+                               p("tnf.vec"), inp]) == 0
+sam = p("in.sam")
+with open(sam, "w") as f:
+    f.write("@SQ\tSN:g\tLN:4000\n")
+    for i in range(20):
+        f.write("q%d\t%d\tg\t%d\t%d\t72M\t=\t1\t0\t%s\t%s\n" % (
+            i, 4 * (i % 3 == 0) | 16 * (i % 2), 1 + 150 * (19 - i), 3 * i,
+            acgt[genome[:72]].tobytes().decode(), "I" * 72))
+assert bam_sort.run(cpu + ["--unmapped-reads", p("un.fq.gz"),
+                           p("sorted.bam"), sam]) == 0
+assert bam_sort.run(cpu + [p("sorted.sam"), p("sorted.bam")]) == 0
+assert filter_and_sort_sam.run(cpu + ["--min-mapq", "20", p("fs.bam"),
+                                      sam]) == 0
+for name in ("f2f-in.fasta", "rs.fq", "ss.fq", "cs", "es", "tnf.inter",
+             "tnf.cl", "tnf.vec", "sorted.bam", "sorted.sam", "fs.bam"):
+    assert os.path.getsize(p(name)) > 0, name
+"""
+
+EPILOGUE = r"""
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "kmernator_tpu"))
 print("JAX_MODULES", bad)
@@ -86,14 +130,33 @@ JAX_PACKAGE_IMPORT = re.compile(
     r"|(import|from)\s+jax\b)", re.M)
 
 
-def test_port_never_imports_jax(tmp_path):
+def _run_clean(script, tmp_path):
+    """Runs the script in a fresh interpreter of its own session, under a
+    time limit that ends the whole session: the host engine's pool
+    workers hold the output pipes, so killing the interpreter alone could
+    leave the test waiting on them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
-                          env=env, capture_output=True, text=True,
-                          timeout=240)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "JAX_MODULES []" in proc.stdout
+    proc = subprocess.Popen([sys.executable, "-c", PROLOGUE + script
+                             + EPILOGUE, str(tmp_path)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=240)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise AssertionError("no end in 240 s:\n" + err[-3000:])
+    assert proc.returncode == 0, out + err
+    assert "JAX_MODULES []" in out
+
+
+def test_port_never_imports_jax(tmp_path):
+    _run_clean(ENGINES, tmp_path)
+
+
+def test_small_apps_never_import_jax(tmp_path):
+    _run_clean(SMALL_APPS, tmp_path)
 
 
 def test_no_source_imports_the_jax_package():
@@ -107,7 +170,11 @@ def test_no_source_imports_the_jax_package():
                 "apps/contig_extender.py", "parallel/dist_match.py",
                 "ops/align.py", "ops/extend.py", "ops/match.py",
                 "ops/vmatch.py", "ops/external.py", "utils/timers.py",
-                "parallel/multihost.py"):
+                "parallel/multihost.py", "io/bam.py", "apps/bam_sort.py",
+                "apps/filter_and_sort_sam.py", "parallel/bam_exchange.py",
+                "apps/fastq2fasta.py", "apps/randomly_sample.py",
+                "apps/split_sequence.py", "apps/compare_spectrums.py",
+                "apps/estimate_size.py", "apps/tnf_distance.py"):
         assert os.path.join(REPO, "kmernator_tpu_torch", new) in sources
     found = []
     for path in sources:
