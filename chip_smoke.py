@@ -99,6 +99,23 @@ started together) and drives the port's paths on the card:
      each byte-identical to the JAX app run as a
      separate program; estimate_size on the port alone (its JAX app
      imports jax). Phases 14-16 launch no kernel of csrc/.
+ 17. `--mesh N` on one card (every shard on it; parallel/mesh.py's owner
+     hash, bucket scatter and exchange): FilterReads in-memory `--mesh 2`
+     and `--mesh 4` on phase 5's input and `--mesh 2` at k=63,
+     `--streaming --mesh 2` on phase 4's, and the purge cell at `--mesh
+     2`, each byte-identical to the host-engine outputs of phases 4, 5, 9
+     and 10 (the same "Removed N") with no singleton purged; `--streaming
+     --mesh 4 --streaming-parts 50000` on phase 5's input, which purges
+     singletons under capacity pressure,
+     byte-identical to the JAX app at `--mesh 4 --jax-platform cpu` on
+     four forced CPU devices (a separate program) with the same count
+     purged; MeraculousCounter `--mesh 2` at k=21 on phase 4's input and
+     `--mesh 4` at k=51 on phase 5's against phase 11's host outputs (13
+     run-length launches a shard); the assembler `--mesh 2` at k=45 with
+     phase 12's seeds against its host output. Each run prints its wall
+     time, the device time of its shard exchange and of its shards'
+     drains or counting (CUDA events), run-length launches, overflow
+     retries and peak device memory.
 Phase 3 also holds the kernel's two- and three-lane instantiations
 (k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
 and times them beside the one-lane kernel.
@@ -138,6 +155,9 @@ HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 SOURCES = ("run_length", "merge_sort", "hash_insert")
 HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
 ASM_ITERATIONS = 5
+# phase 17's capacity-pressure run on phase 5's input: a shard capacity
+# far under its distinct keys
+PRESSURE_ROWS = 50_000
 K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
 FP32_FLOPS = 67e12                   # H100 SXM data sheet, no tensor cores
 TNF_CONTIGS, TNF_GENOMES, TNF_GENOME_BP = 4096, 16, 1_600_000
@@ -453,21 +473,57 @@ def restore_steps(plain):
         setattr(mod, step, fn)
 
 
+# the shard exchange: owner hash (`owners`), bucket loads and slots, the
+# scatter into send planes, and the exchange itself (parallel/mesh.py)
+EXCHANGE = ("owners", "bucket_loads", "bucket_slots",
+            "scatter_plane", "exchange")
+
+
+def event_timed(targets, sink):
+    """Wrap each (owner, name) of `targets` so that every call records a
+    pair of CUDA events around it into sink[name]. Returns the originals,
+    for `restore_steps`."""
+    plain = {}
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        plain[(owner, name)] = fn
+
+        def call(*a, _fn=fn, _name=name, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = _fn(*a, **kw)
+            ev[1].record()
+            sink.setdefault(_name, []).append(ev)
+            return out
+        setattr(owner, name, call)
+    return plain
+
+
+def events_ms(sink, names) -> float:
+    """The device milliseconds between each recorded pair of `names`,
+    summed (after a synchronize)."""
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for n in names for a, b in sink.get(n, ()))
+
+
 def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
               args=(), port_args=(), host_from=None, keep_host=False,
-              steps=()):
-    """Port (in-process, on the card) vs host engine (subprocess), both with
-    `args` at k, the port with `port_args` too: outputs byte-identical, the
-    kernel launched, the table on the card; with --variant-sigmas, the same
-    "Removed N" count, and the purge timed by CUDA events around it.
-    host_from: an earlier run's result whose host outputs (kept by
-    keep_host) stand for this run's, with the same FLAGS, args and k. The
-    table's capacities, the end of pass 1 (the last purge's return) and
-    each lookup_batch, timed by CUDA events, are recorded; with steps
-    ((module, name) pairs), the port's host seconds in each and in the
-    table's add_batch and lookup_batch."""
+              steps=(), mesh: int = 1):
+    """Port (in-process, on the card, `--mesh mesh`) vs host engine
+    (subprocess), both with `args` at k, the port with `port_args` too:
+    outputs byte-identical, the kernel launched, the table on the card; with
+    --variant-sigmas, the same "Removed N" count, and the purge timed by
+    CUDA events around it. host_from: an earlier run's result whose host
+    outputs (kept by keep_host) and log stand for this run's, with the same
+    FLAGS, args and k. The table's capacities, the end of pass 1 (the last
+    purge's return) and each lookup_batch, timed by CUDA events, are
+    recorded, and so are the shard exchange's calls and each shard's drain;
+    with steps ((module, name) pairs), the port's host seconds in each and
+    in the table's add_batch and lookup_batch."""
     import kmernator_tpu_torch.apps.filter_reads as app
+    from kmernator_tpu_torch.parallel import mesh_stream
     tables, purges, lookup_events = [], [], []
+    shard_events = {}
     pass1_end = []
     stages = {}
 
@@ -523,14 +579,18 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     plain_class = app.MeshStreamingSpectrum
     app.MeshStreamingSpectrum = Recorded
     plain_steps = timed_steps(steps, stages)
+    plain_steps.update(event_timed(
+        [(mesh_stream, n) for n in EXCHANGE]
+        + [(mesh_stream.MeshStreamingSpectrum, "_drain_shard")],
+        shard_events))
     torch.cuda.reset_peak_memory_stats()
     try:
         rl.launches = 0
         by_lanes = dict(rl.launches_by_lanes)
         t0 = time.perf_counter()
-        rc = app.run(["--device", "cuda", "--mesh", "1"] + list(port_args)
-                     + ["--out", port_out] + FLAGS + list(args)
-                     + [str(k), fq])
+        rc = app.run(["--device", "cuda", "--mesh", str(mesh)]
+                     + list(port_args) + ["--out", port_out] + FLAGS
+                     + list(args) + [str(k), fq])
         torch.cuda.synchronize()
         t_end = time.perf_counter()
         t_port = t_end - t0
@@ -553,6 +613,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
         t_host = time.perf_counter() - t0
     else:
         host_out, t_host = host_from["host_out"], host_from["host_s"]
+        host_log = host_from["host_log"]
     mine, want = outputs(port_out), outputs(host_out)
     if not want or set(mine) != set(want):
         raise SystemExit("%s: output files differ: %s vs %s"
@@ -565,10 +626,10 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     if launches <= 0:
         raise SystemExit("%s: the run-length kernel was never launched"
                          % name)
-    if len(tables) != 1 or tables[0].drains < 1 or any(
-            x.device.type != "cuda" for x in tables[0].table_lanes):
-        raise SystemExit("%s: the shard table did not live on the card"
-                         % name)
+    if len(tables) != 1 or tables[0].drains < 1 or tables[0].D != mesh \
+            or any(x.device.type != "cuda" for x in tables[0].table_lanes):
+        raise SystemExit("%s: the %d shard tables did not live on the card"
+                         % (name, mesh))
     sp = tables[0]
     lanes = (k + 31) // 32
     if by_lanes[lanes] != launches or sp.L != lanes:
@@ -598,14 +659,18 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
            sp.table_lanes[0].device, sp.drains, sp.purged_singletons, peak))
     log("%s: port %.2f s = %.0f reads/s; host engine %.2f s = %.0f reads/s"
         % (name, t_port, n_reads / t_port, t_host, n_reads / t_host))
-    for path in list(mine.values()) + ([] if keep_host
+    for path in list(mine.values()) + ([] if keep_host or host_from
                                        else list(want.values())):
         os.remove(path)
     lookup_ms = sum(a.elapsed_time(b) for a, b in lookup_events)
     return {"name": name, "k": k, "launches": launches,
             "by_lanes": by_lanes, "port_s": t_port,
             "host_s": t_host, "reads": n_reads, "peak_gib": peak,
-            "purge": purge, "host_out": host_out, "caps": sp.caps,
+            "purge": purge, "host_out": host_out, "host_log": host_log,
+            "caps": sp.caps, "mesh": mesh,
+            "exchange_ms": events_ms(shard_events, EXCHANGE),
+            "drain_ms": events_ms(shard_events, ["_drain_shard"]),
+            "retries": sp.overflow_retries,
             "drains": sp.drains, "purged": sp.purged_singletons,
             "lookups": len(lookup_events), "lookup_device_ms": lookup_ms,
             "pass1_s": pass1_end[-1] - (t_end - t_port) if pass1_end
@@ -665,15 +730,21 @@ def phase_distributed(name: str, fq: str, n_reads: int, rl, k: int,
     return r
 
 
-def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
-    """MeraculousCounter --mesh 1, the port in process on the card, against
-    the JAX package's host engine (a subprocess): mercount and mergraph
-    byte-identical, 13 run-length launches at the keys' lane count, the
-    device time of extension_spectrum_mesh from CUDA events around it, and
-    the port's host seconds in each of the app's steps."""
+def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
+                     mesh: int = 1, host_from=None, keep_host=False):
+    """MeraculousCounter --mesh `mesh`, the port in process on the card,
+    against the JAX package's host engine (a subprocess; host_from: an
+    earlier run's result whose host outputs, kept by keep_host, stand for
+    this run's): mercount and mergraph byte-identical, 13 run-length
+    launches a shard at the keys' lane count, the device time of
+    extension_spectrum_mesh, of its shard exchange and of its shards'
+    counting from CUDA events around them, and the port's host seconds in
+    each of the app's steps."""
     import kmernator_tpu_torch.apps.meraculous_counter as app
+    from kmernator_tpu_torch.parallel import mesh as tmesh
     calls = []
     stages = {}
+    shard_events = {}
     plain = {n: getattr(app, n) for n in (
         "load_reads", "pack_readset", "window_weights", "ragged_to_padded",
         "extension_spectrum_mesh", "spectrum_from_device", "dump_counts",
@@ -689,16 +760,17 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
                                 + time.perf_counter() - t0)
         return call
 
-    def device_timed(mesh, k_, codes, *a, **kw):
+    def device_timed(mesh_, k_, codes, *a, **kw):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        out = host_timed("extension_spectrum_mesh")(mesh, k_, codes, *a,
+        out = host_timed("extension_spectrum_mesh")(mesh_, k_, codes, *a,
                                                     **kw)
         ev[1].record()
         torch.cuda.synchronize()
         calls.append({"device_ms": ev[0].elapsed_time(ev[1]),
                       "windows": codes.shape[0] * (codes.shape[1] - k_ + 1),
-                      "kmers": out[1].numel(), "on": str(codes.device)})
+                      "kmers": 0 if out[1] is None else out[1].numel(),
+                      "overflow": out[3], "on": str(codes.device)})
         return out
 
     port_out = os.path.join(WORK, name + "-port")
@@ -706,13 +778,16 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
     for step in plain:
         setattr(app, step, host_timed(step))
     app.extension_spectrum_mesh = device_timed
+    plain_events = event_timed(
+        [(tmesh, n) for n in EXCHANGE + ("count_received_ext",)],
+        shard_events)
     torch.cuda.reset_peak_memory_stats()
     try:
         rl.launches = 0
         before = dict(rl.launches_by_lanes)
         t0 = time.perf_counter()
-        rc = app.run(["--device", "cuda", "--mesh", "1", "--kmer-size",
-                      str(k), "--out", port_out, fq])
+        rc = app.run(["--device", "cuda", "--mesh", str(mesh),
+                      "--kmer-size", str(k), "--out", port_out, fq])
         torch.cuda.synchronize()
         t_end = time.perf_counter()
         t_port = t_end - t0
@@ -721,18 +796,23 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
     finally:
         for step, fn in plain.items():
             setattr(app, step, fn)
+        restore_steps(plain_events)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if rc != 0:
         raise SystemExit("%s: port MeraculousCounter exited %d" % (name, rc))
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m",
-                           "kmernator_tpu.apps.meraculous_counter",
-                           "--kmer-size", str(k), "--out", host_out, fq],
-                          env=env_with_root(), capture_output=True, text=True)
-    t_host = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit("%s: the host engine exited %d:\n%s"
-                         % (name, proc.returncode, proc.stderr[-3000:]))
+    if host_from is None:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "kmernator_tpu.apps.meraculous_counter",
+                               "--kmer-size", str(k), "--out", host_out, fq],
+                              env=env_with_root(), capture_output=True,
+                              text=True)
+        t_host = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit("%s: the host engine exited %d:\n%s"
+                             % (name, proc.returncode, proc.stderr[-3000:]))
+    else:
+        host_out, t_host = host_from["host_out"], host_from["host_s"]
     mine, want = outputs(port_out), outputs(host_out)
     suffixes = {".mercount.m%d" % k, ".mergraph.m%d.D2" % k}
     if set(want) != suffixes or set(mine) != suffixes:
@@ -748,28 +828,40 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int):
         sizes[suffix] = (len(data), data.count(b"\n"))
         del data
     lanes = (k + 31) // 32
-    if (len(calls) != 1 or calls[0]["on"] != "cuda:0" or launches != 13
-            or by_lanes[lanes] != 13):
-        raise SystemExit("%s: expected one extension_spectrum_mesh call on "
-                         "the card and 13 run-length launches at %d lanes; "
-                         "got %s and %s" % (name, lanes, calls, by_lanes))
-    call = calls[0]
-    log("%s: byte-identical (%s); k=%d (%d-lane keys), run_length launches "
-        "%d %s; %d windows, %d distinct k-mers; extension_spectrum_mesh "
-        "%.1f ms of device time (CUDA events); peak device memory %.2f GiB"
+    want_launches = 13 * mesh
+    if (not calls or calls[-1]["overflow"] or
+            {c["on"] for c in calls} != {"cuda:0"}
+            or launches != want_launches
+            or by_lanes[lanes] != want_launches):
+        raise SystemExit("%s: expected extension_spectrum_mesh on the card "
+                         "and %d run-length launches at %d lanes; got %s "
+                         "and %s" % (name, want_launches, lanes, calls,
+                                     by_lanes))
+    call = calls[-1]
+    exchange_ms = events_ms(shard_events, EXCHANGE)
+    count_ms = events_ms(shard_events, ["count_received_ext"])
+    log("%s: byte-identical (%s); --mesh %d, k=%d (%d-lane keys), "
+        "run_length launches %d %s; %d windows, %d distinct k-mers; "
+        "extension_spectrum_mesh %.1f ms of device time (CUDA events), of "
+        "which the shard exchange %.1f ms and the shards' counting %.1f "
+        "ms; %d overflow retries; peak device memory %.2f GiB"
         % (name, ", ".join("%s %d B, %d lines" % (x, *sizes[x])
-                           for x in sorted(sizes)), k, lanes, launches,
-           by_lanes, call["windows"], call["kmers"], call["device_ms"], peak))
+                           for x in sorted(sizes)), mesh, k, lanes,
+           launches, by_lanes, call["windows"], call["kmers"],
+           call["device_ms"], exchange_ms, count_ms, len(calls) - 1, peak))
     log("%s: port %.2f s = %.0f reads/s; host engine %.2f s = %.0f reads/s"
         % (name, t_port, n_reads / t_port, t_host, n_reads / t_host))
     log("%s: the port's host seconds by step: %s; the rest %.2f s"
         % (name, ", ".join("%s %.2f" % x for x in stages.items()),
            t_port - sum(stages.values())))
-    for path in list(mine.values()) + list(want.values()):
+    for path in list(mine.values()) + ([] if keep_host or host_from
+                                       else list(want.values())):
         os.remove(path)
-    return {"name": name, "k": k, "launches": launches,
+    return {"name": name, "k": k, "mesh": mesh, "launches": launches,
             "by_lanes": by_lanes, "port_s": t_port, "host_s": t_host,
-            "reads": n_reads, "peak_gib": peak, "stages_s": stages, **call}
+            "host_out": host_out, "reads": n_reads, "peak_gib": peak,
+            "stages_s": stages, "exchange_ms": exchange_ms,
+            "count_ms": count_ms, "retries": len(calls) - 1, **call}
 
 
 def draw_seeds(fq: str, n_reads: int, path: str, n_seeds: int,
@@ -789,26 +881,33 @@ def draw_seeds(fq: str, n_reads: int, path: str, n_seeds: int,
 
 
 def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
-                    n_seeds: int, iterations: int):
-    """The nucleating assembler --mesh 1, the port in process on the card,
-    against the JAX package's host engine (its k-mer read index, no mesh; a
-    subprocess): the contig files byte-identical, the read index built once
-    on the card, one match a iteration, no kernel launched. Prints the
-    index's rows and distinct keys, queries and hits a iteration, the
-    device time of the index build and of each match (CUDA events), peak
-    device memory, both wall times, and the port's host seconds by step."""
+                    n_seeds: int, iterations: int, mesh: int = 1,
+                    host_from=None, keep_host=False):
+    """The nucleating assembler --mesh `mesh`, the port in process on the
+    card, against the JAX package's host engine (its k-mer read index, no
+    mesh; a subprocess; host_from: an earlier run's result whose seeds and
+    host outputs, kept by keep_host, stand for this run's): the contig
+    files byte-identical, the read index built on the card, one match a
+    iteration, no kernel launched. Prints the index's rows and distinct
+    keys, queries and hits a iteration, the device time of the index build,
+    of its shard exchange and of each match (CUDA events), peak device
+    memory, both wall times, and the port's host seconds by step."""
     import kmernator_tpu_torch.apps.nucleating_assembler as app
     from kmernator_tpu_torch.parallel import dist_match as dm
-    seeds = os.path.join(WORK, name + "-seeds.fa")
-    draw_seeds(fq, n_reads, seeds, n_seeds)
+    if host_from is None:
+        seeds = os.path.join(WORK, name + "-seeds.fa")
+        draw_seeds(fq, n_reads, seeds, n_seeds)
+    else:
+        seeds = host_from["seeds"]
     stages, builds, matches = {}, [], []
+    shard_events = {}
     steps = {app: ("load_reads", "ArtifactFilter", "apply_artifact_filter",
                    "screen_pools", "extend_contigs", "write_fasta"),
              dm: ("pack_readset", "window_weights", "good_kmer_mask",
                   "ragged_to_padded", "mesh_match_pools")}
     plain = {(mod, n): getattr(mod, n) for mod, names in steps.items()
              for n in names}
-    plain_build, plain_match = dm.build_index, dm.match
+    plain_build, plain_match = dm.build_index, dm.match_shards
 
     def host_timed(mod, step):
         def call(*a, **kw):
@@ -821,15 +920,19 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
         return call
 
     def index_summary(out):
-        lanes, rid = out
-        distinct = 0
-        if rid.numel():
-            neq = lanes[0][1:] != lanes[0][:-1]
-            for lane in lanes[1:]:
-                neq |= lane[1:] != lane[:-1]
-            distinct = 1 + int(neq.sum())
-        return {"rows": rid.numel(), "distinct": distinct,
-                "lanes": len(lanes), "on": str(rid.device)}
+        shards, overflow = out
+        rows = distinct = 0
+        for lanes, rid in shards or ():
+            rows += rid.numel()
+            if rid.numel():
+                neq = lanes[0][1:] != lanes[0][:-1]
+                for lane in lanes[1:]:
+                    neq |= lane[1:] != lane[:-1]
+                distinct += 1 + int(neq.sum())
+        return {"rows": rows, "distinct": distinct, "overflow": overflow,
+                "shards": len(shards or ()), "lanes": (k + 31) // 32,
+                "on": "cuda:0" if shards is None
+                else str(shards[0][1].device)}
 
     def match_summary(ids):
         return {"queries": ids.shape[0], "hits": int((ids >= 0).sum()),
@@ -855,36 +958,42 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
         setattr(mod, step, host_timed(mod, step))
     dm.build_index = device_timed(plain_build, builds, index_summary,
                                   "build_index")
-    dm.match = device_timed(plain_match, matches, match_summary,
-                            "match (in mesh_match_pools)")
+    dm.match_shards = device_timed(plain_match, matches, match_summary,
+                                   "match (in mesh_match_pools)")
+    plain_events = event_timed([(dm, n) for n in EXCHANGE], shard_events)
     torch.cuda.reset_peak_memory_stats()
     counters = (rl.launches, dict(ms.launches), hi.launches)
     try:
         t0 = time.perf_counter()
-        rc = app.run(["--device", "cuda", "--mesh", "1", "--contig-file",
-                      seeds, "--max-iterations", str(iterations), "--out",
-                      port_out, str(k), fq])
+        rc = app.run(["--device", "cuda", "--mesh", str(mesh),
+                      "--contig-file", seeds, "--max-iterations",
+                      str(iterations), "--out", port_out, str(k), fq])
         torch.cuda.synchronize()
         t_port = time.perf_counter() - t0
     finally:
         for (mod, step), fn in plain.items():
             setattr(mod, step, fn)
-        dm.build_index, dm.match = plain_build, plain_match
+        dm.build_index, dm.match_shards = plain_build, plain_match
+        restore_steps(plain_events)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if rc != 0:
         raise SystemExit("%s: the port's assembler exited %d" % (name, rc))
     if (rl.launches, dict(ms.launches), hi.launches) != counters:
         raise SystemExit("%s: the assembler's path launched a kernel" % name)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m",
-                           "kmernator_tpu.apps.nucleating_assembler",
-                           "--contig-file", seeds, "--max-iterations",
-                           str(iterations), "--out", host_out, str(k), fq],
-                          env=env_with_root(), capture_output=True, text=True)
-    t_host = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise SystemExit("%s: the host engine exited %d:\n%s"
-                         % (name, proc.returncode, proc.stderr[-3000:]))
+    if host_from is None:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "kmernator_tpu.apps.nucleating_assembler",
+                               "--contig-file", seeds, "--max-iterations",
+                               str(iterations), "--out", host_out, str(k),
+                               fq], env=env_with_root(), capture_output=True,
+                              text=True)
+        t_host = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit("%s: the host engine exited %d:\n%s"
+                             % (name, proc.returncode, proc.stderr[-3000:]))
+    else:
+        host_out, t_host = host_from["host_out"], host_from["host_s"]
     mine, want = outputs(port_out), outputs(host_out)
     if "" not in want or set(mine) != set(want):
         raise SystemExit("%s: output files differ: %s vs %s"
@@ -902,17 +1011,22 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
         raise SystemExit("%s: %d contigs, %d grew" % (name, len(lengths),
                                                       grew))
     on = {x["on"] for x in builds + matches}
-    if len(builds) != 1 or not matches or on != {"cuda:0"}:
-        raise SystemExit("%s: expected one index build and the matches on "
-                         "the card; got %s and %s" % (name, builds, matches))
-    index = builds[0]
+    if (not builds or builds[-1]["overflow"] or not matches
+            or builds[-1]["shards"] != mesh or on != {"cuda:0"}):
+        raise SystemExit("%s: expected the index of %d shards built and "
+                         "the matches on the card; got %s and %s"
+                         % (name, mesh, builds, matches))
+    index = builds[-1]
+    exchange_ms = events_ms(shard_events, EXCHANGE)
     log("%s: byte-identical (%d files; %d contigs, %d grew, longest %d "
-        "bp); k=%d (%d-lane keys); index %d rows, %d distinct keys; build "
-        "%.1f ms of device time (CUDA events); no kernel launched; peak "
-        "device memory %.2f GiB"
-        % (name, len(want), len(lengths), grew, max(lengths), k,
+        "bp); --mesh %d, k=%d (%d-lane keys); index %d rows, %d distinct "
+        "keys; build %.1f ms of device time (CUDA events); the shard "
+        "exchange (the build's routing, the queries' owner hash) %.1f ms; "
+        "%d overflow retries; no kernel launched; "
+        "peak device memory %.2f GiB"
+        % (name, len(want), len(lengths), grew, max(lengths), mesh, k,
            index["lanes"], index["rows"], index["distinct"],
-           index["device_ms"], peak))
+           index["device_ms"], exchange_ms, len(builds) - 1, peak))
     log("%s: matches (queries, hits, device ms): %s"
         % (name, ", ".join("%d: %d, %d, %.2f" % (i + 1, m["queries"],
                                                  m["hits"], m["device_ms"])
@@ -923,12 +1037,15 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
     log("%s: the port's host seconds by step: %s; the rest %.2f s"
         % (name, ", ".join("%s %.2f" % x for x in stages.items()),
            t_port - sum(stages.values()) + nested))
-    for path in [seeds] + list(mine.values()) + list(want.values()):
+    for path in list(mine.values()) + ([] if keep_host or host_from
+                                       else [seeds] + list(want.values())):
         os.remove(path)
     torch.cuda.empty_cache()
-    return {"name": name, "k": k, "seeds": n_seeds, "iterations": iterations,
-            "grew": grew, "port_s": t_port, "host_s": t_host,
+    return {"name": name, "k": k, "mesh": mesh, "seeds": seeds,
+            "n_seeds": n_seeds, "iterations": iterations, "grew": grew,
+            "port_s": t_port, "host_s": t_host, "host_out": host_out,
             "reads": n_reads, "peak_gib": peak, "index": index,
+            "exchange_ms": exchange_ms, "retries": len(builds) - 1,
             "matches": matches, "stages_s": stages}
 
 
@@ -1898,10 +2015,100 @@ def phase_small_apps(fq: str, fq_other: str, smi: str):
     return {"wall_s": walls, "estimate": estimate, "outputs": files}
 
 
+def phase_pressure(rl, fq32: str, n_reads: int):
+    """FilterReads `--streaming --mesh 4 --streaming-parts PRESSURE_ROWS` on
+    phase 5's input, so that the shards' drains purge singletons under
+    capacity pressure, against the JAX app at `--mesh 4 --jax-platform cpu`
+    on four forced CPU devices (a separate program): every output file
+    byte-identical, and the same count of singletons purged, warned of by
+    both. The input is not cut: the JAX app takes tens of seconds on it."""
+    parts = ["--streaming", "--streaming-parts", str(PRESSURE_ROWS)]
+    jax_out = os.path.join(WORK, "mesh4-pressure-jax")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kmernator_tpu.apps.filter_reads",
+         "--jax-platform", "cpu", "--mesh", "4"] + parts
+        + ["--out", jax_out] + FLAGS + [str(K), fq32],
+        env=env_with_root(JAX_PLATFORMS="cpu", XLA_FLAGS=(
+            "--xla_force_host_platform_device_count=4")),
+        capture_output=True, text=True, timeout=600)
+    t_jax = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit("mesh4-pressure: the JAX app exited %d:\n%s"
+                         % (proc.returncode, proc.stderr[-3000:]))
+    r = phase_app("mesh4-pressure", fq32, n_reads, rl, {}, mesh=4,
+                  port_args=parts,
+                  host_from={"host_out": jax_out, "host_s": t_jax,
+                             "host_log": proc.stderr})
+    found = re.findall(r"mesh streaming purged (\d+) singletons",
+                       proc.stderr)
+    if r["purged"] <= 0 or found != [str(r["purged"])]:
+        raise SystemExit("mesh4-pressure: the port purged %d singletons, "
+                         "the JAX app logged %s" % (r["purged"], found))
+    for path in outputs(jax_out).values():
+        os.remove(path)
+    log("mesh4-pressure: %d singletons purged under capacity pressure by "
+        "both, %d reads, %d rows a shard; JAX app at --mesh 4 on 4 CPU "
+        "devices %.2f s" % (r["purged"], n_reads, PRESSURE_ROWS, t_jax))
+    return r
+
+
+def phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge, n_purge,
+                 purge_args, in_memory, runs, wide, purge_run, mer, asm):
+    """Phase 17: --mesh N on one card, every shard on it. FilterReads
+    in-memory at --mesh 2 and 4 and at k=63, --streaming --mesh 2 on phase
+    4's input and the purge cell at --mesh 2, each byte-identical to the
+    host-engine outputs of phases 4, 5, 9 and 10 with no singleton
+    purged; the capacity-pressure run against the JAX app at --mesh 4;
+    MeraculousCounter at --mesh 2 (k=21, phase 4's input) and --mesh 4
+    (k=51, phase 5's) against phase 11's host outputs; the assembler at
+    --mesh 2 (k=45) against phase 12's. Prints each run's wall time, the
+    device time of its shard exchange and of its shards' drains (CUDA
+    events), run-length launches, overflow retries and peak memory."""
+    fr = [phase_app("mesh2-in-memory", fq32, n32, rl, in_memory, mesh=2,
+                    host_from=runs[1]),
+          phase_app("mesh4-in-memory", fq32, n32, rl, in_memory, mesh=4,
+                    host_from=runs[1]),
+          phase_app("mesh2-k63", fq32, n32, rl, in_memory, k=63, mesh=2,
+                    host_from=wide[1]),
+          phase_app("mesh2-streaming", fq256, n256, rl, {}, mesh=2,
+                    port_args=["--streaming"], host_from=runs[0]),
+          phase_app("mesh2-purge", fq_purge, n_purge, rl, in_memory,
+                    mesh=2, args=purge_args, host_from=purge_run)]
+    for r in fr:
+        if r["purged"]:
+            raise SystemExit("%s: %d singletons purged" % (r["name"],
+                                                          r["purged"]))
+    fr.append(phase_pressure(rl, fq32, n32))
+    mr = [phase_meraculous("mesh2-meraculous-k21", fq256, n256, rl, 21,
+                           mesh=2, host_from=mer[0]),
+          phase_meraculous("mesh4-meraculous-k51", fq32, n32, rl, 51,
+                           mesh=4, host_from=mer[1])]
+    ar = phase_assembler("mesh2-asm-k45", fq32, n32, rl, ms, hi, 45,
+                         asm[1]["n_seeds"], asm[1]["iterations"], mesh=2,
+                         host_from=asm[1])
+    for r in fr + mr:
+        log("%s: --mesh %d, %.2f s wall; shard exchange %.1f ms, shards' "
+            "%s %.1f ms of device time (CUDA events); run_length launches "
+            "%d; %d overflow retries; %s singletons purged; peak device "
+            "memory %.2f GiB"
+            % (r["name"], r["mesh"], r["port_s"], r["exchange_ms"],
+               "drains" if "drain_ms" in r else "counting",
+               r.get("drain_ms", r.get("count_ms")), r["launches"],
+               r["retries"], r.get("purged", 0), r["peak_gib"]))
+    log("%s: --mesh %d, %.2f s wall; shard exchange %.1f ms; index build "
+        "%.1f ms of device time (CUDA events); run_length launches 0; %d "
+        "overflow retries; peak device memory %.2f GiB"
+        % (ar["name"], ar["mesh"], ar["port_s"], ar["exchange_ms"],
+           ar["index"]["device_ms"], ar["retries"], ar["peak_gib"]))
+    return {"runs": fr + mr, "asm": ar}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from kmernator_tpu_torch.kernels import build
     from kmernator_tpu_torch.parallel import hash_insert as hi
@@ -1947,7 +2154,8 @@ def main() -> int:
     fq32 = os.path.join(WORK, "meta32.fastq")
     n32 = generate(fq32, "0.75")
     in_memory = {"KMTPU_AUTO_STREAM_MB": "64"}
-    runs.append(phase_app("in-memory", fq32, n32, rl, in_memory))
+    runs.append(phase_app("in-memory", fq32, n32, rl, in_memory,
+                          keep_host=True))
     log("phase 5 in-memory slice ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
@@ -1968,12 +2176,12 @@ def main() -> int:
         "[%.1f s]" % (hs["launches"], time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    fq = os.path.join(WORK, "purge42.fastq")
-    n = generate(fq, "0.1", genomes="4", coverage="200")
-    purge_run = phase_app("purge", fq, n, rl, in_memory, args=[
-        "--variant-sigmas", "2", "--min-variant-kmer-depth", "20",
-        "--verbose", "1"])
-    os.remove(fq)
+    fq_purge = os.path.join(WORK, "purge42.fastq")
+    n_purge = generate(fq_purge, "0.1", genomes="4", coverage="200")
+    purge_args = ["--variant-sigmas", "2", "--min-variant-kmer-depth", "20",
+                  "--verbose", "1"]
+    purge_run = phase_app("purge", fq_purge, n_purge, rl, in_memory,
+                          args=purge_args, keep_host=True)
     log("phase 9 on-device variant purge ok [%.1f s]"
         % (time.perf_counter() - t0))
 
@@ -1985,8 +2193,10 @@ def main() -> int:
     log("phase 10 k > 32 ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    mer = [phase_meraculous("meraculous-k21", fq256, n256, rl, 21),
-           phase_meraculous("meraculous-k51", fq32, n32, rl, 51)]
+    mer = [phase_meraculous("meraculous-k21", fq256, n256, rl, 21,
+                            keep_host=True),
+           phase_meraculous("meraculous-k51", fq32, n32, rl, 51,
+                            keep_host=True)]
     log("phase 11 MeraculousCounter --mesh 1 ok [%.1f s]"
         % (time.perf_counter() - t0))
 
@@ -1994,7 +2204,7 @@ def main() -> int:
     asm = [phase_assembler("asm-k31", fq256, n256, rl, ms, hi, 31, 50,
                            ASM_ITERATIONS),
            phase_assembler("asm-k45", fq32, n32, rl, ms, hi, 45, 25,
-                           ASM_ITERATIONS)]
+                           ASM_ITERATIONS, keep_host=True)]
     log("phase 12 nucleating assembler --mesh 1 ok [%.1f s]"
         % (time.perf_counter() - t0))
 
@@ -2003,10 +2213,6 @@ def main() -> int:
                               runs[0], runs[0]),
             phase_distributed("dist-k63", fq32, n32, rl, 63, wide[1],
                               wide[1])]
-    for r in (runs[0], wide[1]):
-        for path in outputs(r["host_out"]).values():
-            os.remove(path)
-    os.remove(fq256)
     log("phase 13 --streaming --distributed --nprocs 1 ok [%.1f s]"
         % (time.perf_counter() - t0))
 
@@ -2025,12 +2231,26 @@ def main() -> int:
     generate(fq_other, "0.75", seed="8")
     small = phase_small_apps(fq32, fq_other, smi)
     os.remove(fq_other)
-    os.remove(fq32)
     if rl.launches:
         raise SystemExit("phases 14-16 launched the run-length kernel")
     log("phase 16 small apps ok [%.1f s]" % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    mesh_runs = phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge,
+                             n_purge, purge_args, in_memory, runs, wide,
+                             purge_run, mer, asm)
+    for r in runs[:2] + [wide[1], purge_run] + mer:
+        for path in outputs(r["host_out"]).values():
+            os.remove(path)
+    for path in [fq256, fq32, fq_purge, asm[1]["seeds"]] + list(
+            outputs(asm[1]["host_out"]).values()):
+        os.remove(path)
+    log("phase 17 --mesh N on one card ok [%.1f s]"
+        % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer + dist
     launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
+    runs += mesh_runs["runs"]
+    launches += sum(r["launches"] for r in mesh_runs["runs"])
     by_lanes = {L: sum(r["by_lanes"][L] for r in runs) for L in (1, 2, 3)}
     by_lanes[1] += count["run_length"]
     if min(by_lanes.values()) <= 0:
@@ -2050,13 +2270,16 @@ def main() -> int:
         % json.dumps(PREV_MS))
     log("FilterReads and MeraculousCounter runs: %s" % json.dumps({
         r["name"]: {key: v for key, v in r.items()
-                    if key not in ("name", "host_out")}
+                    if key not in ("name", "host_out", "host_log")}
         for r in runs}))
     log("assembler runs (no kernel launched): %s" % json.dumps({
-        r["name"]: {key: v for key, v in r.items() if key != "name"}
-        for r in asm}))
+        r["name"]: {key: v for key, v in r.items()
+                    if key not in ("name", "host_out", "seeds")}
+        for r in asm + [mesh_runs["asm"]]}))
     log("TnfDistance, BamSort and small-app runs (no kernel launched): %s"
         % json.dumps({"tnf": tnf_run, "bam": bam_run, "small": small}))
+    log("chip_smoke: every phase passed in %.1f s"
+        % (time.perf_counter() - t_start))
     log(smi)
     log(json.dumps({"kernels": [{
         "name": "run_length_sums", "route": "cuda",

@@ -9,12 +9,12 @@ Copied for kmernator_tpu_torch from kmernator_tpu/apps/filter_reads.py
 apps/FilterReads.cpp:83-215, apps/FilterReads.h:158-282). Every
 single-process engine runs here on the port's own code: the host engine
 without --mesh (in-memory, and streaming with its fork pool), the
-in-memory --mesh 1 engine and --streaming --mesh 1. It differs from its
+in-memory --mesh N engine and --streaming --mesh N. It differs from its
 source in its package imports and in these places:
 
 - The device seams are the port's: `window_count_lookup_mesh`
-  (in-memory --mesh 1), `_chunk_padded`, `_streaming_mesh_count`
-  (--streaming --mesh 1, and inputs over 2 MB, which stream on their own)
+  (in-memory --mesh N), `_chunk_padded`, `_streaming_mesh_count`
+  (--streaming --mesh N, and inputs over 2 MB, which stream on their own)
   and `run_streaming_distributed` (--streaming --distributed at one
   process, with grow-on-pressure and its pass-2 lookups on the device)
   count and look up on a torch device through MeshStreamingSpectrum. Those
@@ -28,8 +28,10 @@ source in its package imports and in these places:
   `--distributed X` runs at one process: with --streaming (or an input
   that streams on its own) in `run_streaming_distributed`, else on the
   in-memory engine, which ignores the coordinator as the JAX app does.
-- Refused, each waiting for the D > 1 PR: --nprocs > 1, --mesh > 1 and
-  --gathered-logs, so the multi-process branches of `run` are not copied.
+- `--mesh N` runs N shards in one process on the one device (the JAX
+  mesh of N devices; parallel/mesh.py). Refused, each waiting for the
+  multi-process port: --nprocs > 1 and --gathered-logs, so the
+  multi-process branches of `run` are not copied.
   k > 96 is refused on a --mesh path and in the distributed engine (keys
   of at most 3 int64 lanes; the JAX package takes any k there).
 """
@@ -217,11 +219,12 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
                              variant_hamming: int = 2,
                              min_variant_depth: float = 512.0, *,
                              device: torch.device):
-    """In-memory --mesh 1 counting: pass 1 streams the reads' good windows
-    into the device table in batches; with variant_sigmas > 0 the table is
-    purged on the device (min depth first, then the variant purge); pass 2
-    looks every window up on the device. Returns the host path's ragged
-    (counts, window_offsets)."""
+    """In-memory --mesh N counting: pass 1 streams the reads' good windows
+    into the n_devices shard tables on the device in batches of a multiple
+    of n_devices reads; with variant_sigmas > 0 the tables are purged on
+    the device (min depth first, then the variant purge); pass 2 looks
+    every window up on the device. Returns the host path's ragged (counts,
+    window_offsets)."""
     check_k(k)
     L = max(rs.max_length(), k)
     codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
@@ -238,10 +241,12 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
     good2d &= ~rs.discarded[:, None]
     weights2d = ragged_to_padded(w.astype(np.float32), nw, NW, fill=0.0)
 
+    D = n_devices
     if capacity <= 0:
-        capacity = max(int(np.ceil(int(exact_good.sum()) * 1.25)), 4096)
+        capacity = max(int(np.ceil(int(exact_good.sum()) / D * 1.25)), 4096)
     if batch_reads <= 0:
         batch_reads = DEFAULT_BATCH_READS
+    batch_reads = max((batch_reads // D) * D, D)
     n_batches = max(-(-B // batch_reads), 1)
     sp = MeshStreamingSpectrum(make_mesh(n_devices, device), k,
                                capacity=capacity)
@@ -721,8 +726,9 @@ def _streaming_mesh_count(chunks, input_files, k, min_quality, output_base,
                           min_kmer_quality, mesh_devices, batch_reads,
                           capacity, subtract_keys, track_w, *,
                           device: torch.device) -> KmerSpectrum:
-    """Pass 1 of --streaming --mesh 1: every chunk's good windows stream
-    into the device table; the host never holds more than one chunk."""
+    """Pass 1 of --streaming --mesh N: every chunk's good windows stream
+    into the mesh_devices shard tables on the device; the host never holds
+    more than one chunk."""
     from kmernator_tpu_torch.io.stream import estimate_raw_kmers
     check_k(k)
     if capacity <= 0:
@@ -1932,15 +1938,12 @@ def refusal(argv: List[str]):
     """The reason this port cannot run `argv` yet, or None."""
     if int(_flag_value(argv, "--nprocs") or 1) > 1:
         return ("--nprocs %s (multi-process runs over torch.distributed) "
-                "waits for the D > 1 PR; --distributed runs at --nprocs 1"
-                % _flag_value(argv, "--nprocs"))
-    if int(_flag_value(argv, "--mesh") or 0) not in (0, 1):
-        return ("--mesh %s waits for the D > 1 PR (owner hash, bucket "
-                "scatter and all_to_all over NCCL); use --mesh 1"
-                % _flag_value(argv, "--mesh"))
+                "is not ported yet (ROADMAP queue 1, item 3); --distributed "
+                "runs at --nprocs 1, and --mesh N runs N shards in one "
+                "process" % _flag_value(argv, "--nprocs"))
     if int(_flag_value(argv, "--gathered-logs") or 0) > 0:
-        return ("--gathered-logs (rank-gathered logs) waits for the D > 1 "
-                "PR")
+        return ("--gathered-logs (rank-gathered logs) is not ported yet "
+                "(ROADMAP queue 1, item 3)")
     return None
 
 

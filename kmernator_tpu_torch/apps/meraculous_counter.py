@@ -18,18 +18,19 @@ The host engines (in-memory, and streaming through disk parts) are the
 source's; it differs from its source in its package imports and in these
 places:
 
-- `build_extension_spectrum_mesh` (--mesh 1) builds the spectrum on a torch
-  device through parallel/mesh.py `extension_spectrum_mesh`: the key runs'
-  13 sums come from the run-length kernel. `spectrum_from_device` carries
-  its table to the host KmerSpectrum the dumps read.
+- `build_extension_spectrum_mesh` (--mesh N) builds the spectrum on N
+  shards of a torch device through parallel/mesh.py
+  `extension_spectrum_mesh`: each shard's 13 key-run sums come from the
+  run-length kernel. `spectrum_from_device` carries its table to the host
+  KmerSpectrum the dumps read.
 - `build_extension_spectrum_streaming` stores the key of its spill record
   as `pack_keys` makes it: u64 for k <= 32, a big-endian byte string of 4W
   bytes above. The source stores u64 at every k, so its streaming engine
   fails for k > 32.
 - `run` takes `--device cuda|cpu` (default cuda; cuda without a visible GPU
-  raises) in place of `--jax-platform`. `--mesh` other than 1 is refused
-  (make_mesh), as is k > 96 with --mesh (check_k: keys of at most 3 int64
-  lanes; the JAX package takes any k there). The host engines take any k.
+  raises) in place of `--jax-platform`. k > 96 with --mesh is refused
+  (check_k: keys of at most 3 int64 lanes; the JAX package takes any k
+  there). The host engines take any k.
 """
 from __future__ import annotations
 
@@ -327,12 +328,16 @@ def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
                                   output_base: int, min_kmer_quality: float,
                                   n_devices: int, *,
                                   device) -> KmerSpectrum:
-    """The extension-tracking spectrum on one torch device (the JAX
-    app's sharded MeraculousCounter path at D = 1): exact host weights gate
-    goodness; windows, extensions and the counting run on the device."""
+    """The extension-tracking spectrum on n_devices shards of one torch
+    device (the JAX app's sharded MeraculousCounter path): exact host
+    weights gate goodness; windows, extensions, the exchange and the
+    counting run on the device. The reads are padded to a multiple of the
+    shards; a bucket overflow retries at twice the capacity_factor, from
+    2.0 up to 32, as the JAX app does."""
     mesh = make_mesh(n_devices, device)
     L = max(rs.max_length(), k)
     codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
+    B = codes.shape[0]
     NW = L - k + 1
     codes_raw = BASE_CODE[rs.seq]
     markup = codes_raw == 4
@@ -348,13 +353,29 @@ def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
     ext_ok2d = ragged_to_padded(ok_flat, lens, L, fill=False)
     good2d &= ~rs.discarded[:, None]
     del codes_raw, markup, p, w, exact_good, phred, read_id, ok_flat
+    pad = (-B) % n_devices
+    if pad:
+        codes = np.concatenate([codes, np.zeros((pad, L), codes.dtype)])
+        good2d = np.concatenate([good2d, np.zeros((pad, NW), bool)])
+        ext_ok2d = np.concatenate([ext_ok2d, np.zeros((pad, L), bool)])
+        lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
 
     def dev(a):
         return torch.from_numpy(a).to(mesh.device)
 
-    lanes, counts, ext = extension_spectrum_mesh(
-        mesh, k, dev(codes), dev(good2d), dev(ext_ok2d), dev(lengths),
-        min_count=1)
+    args = (dev(codes), dev(good2d), dev(ext_ok2d), dev(lengths))
+    cap = 2.0
+    while True:
+        lanes, counts, ext, overflow = extension_spectrum_mesh(
+            mesh, k, *args, min_count=1, capacity_factor=cap)
+        if not overflow:
+            break
+        cap *= 2.0  # hash-skewed input: double per-owner bucket capacity
+        if cap > 32.0:
+            raise RuntimeError(
+                "mesh bucket overflow even at capacity %g" % cap)
+        Log.warn("mesh bucket overflow — retrying with capacity_factor %g"
+                 % cap)
     return spectrum_from_device(k, lanes, counts, ext)
 
 
@@ -404,7 +425,7 @@ def run(argv: List[str]) -> int:
         Log.error("The Kmer size can not be 0")
         return 1
     if mesh_devices > 0:
-        make_mesh(mesh_devices, device)   # raises for --mesh other than 1
+        make_mesh(mesh_devices, device)
         check_k(k)
     # inputs past the in-memory comfort zone auto-select the streaming
     # builder (the reference's MeraculousCounter is the streaming MPI

@@ -15,11 +15,11 @@ It differs from its source in its package imports and in:
   resolved before anything is read (utils/device.py `resolve_device`:
   cuda without a visible GPU raises, so the host and vmatch engines need
   `--device cpu` on a machine without one);
-- the `--mesh` branch builds the read index of parallel/dist_match.py on
-  that device in place of the JAX mesh; `--mesh` other than 1 (when the
-  k-mer matcher is selected, k > 0) is refused by `make_mesh` and k > 96
-  by `check_k`, both before the input is read. The host engines take any
-  k, as in the source.
+- the `--mesh N` branch builds the read index of parallel/dist_match.py
+  on N shards of that device in place of the JAX mesh of N devices; k > 96
+  there (when the k-mer matcher is selected, k > 0) is refused by
+  `check_k` before the input is read. The host engines take any k, as in
+  the source.
 """
 from __future__ import annotations
 
@@ -161,7 +161,7 @@ def run(argv: List[str]) -> int:
     # Vmatch matcher iff --kmer-size is 0
     # (apps/DistributedNucleatingAssembler.cpp:392-397)
     if asm.mesh and not use_vmatch:
-        make_mesh(asm.mesh, device)     # raises for --mesh other than 1
+        make_mesh(asm.mesh, device)
         check_k(kopts.kmer_size)
 
     rs = load_reads(opts.input_file, opts.fastq_base_quality,
@@ -186,7 +186,7 @@ def run(argv: List[str]) -> int:
     elif asm.mesh:
         # distributed matcher: index sharded over the device mesh, edge-kmer
         # queries resolved collectively (the exchangeGlobalReads analogue);
-        # one device here
+        # all shards on one device here
         from kmernator_tpu_torch.parallel.dist_match import (MeshReadIndex,
                                                              mesh_match_pools)
         mesh = make_mesh(asm.mesh, device)

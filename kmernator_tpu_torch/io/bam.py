@@ -11,10 +11,8 @@ is numpy and the standard library, with no import of either package. It
 differs from its source only in `bgzf_decompress`, which inflates BGZF
 blocks one at a time by their BSIZE field. The source hands the whole
 stream to `gzip.decompress`, which copies the rest of the stream at each
-of its members, so its time grows faster than the square of the member
-count: 26 s for 48 MB of BGZF, and no end in sight after 1,100 s for the
-181 MB of a million 150 bp records (ROADMAP fault 3l). The bytes are the
-same.
+of its members, so its time grows with the square of the member count
+(ROADMAP fault 3l). The bytes are the same.
 """
 from __future__ import annotations
 

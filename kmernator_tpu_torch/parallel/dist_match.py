@@ -1,29 +1,28 @@
-"""The k-mer -> read-id matcher of the assembler's `--mesh` path, on one
-torch device.
+"""The k-mer -> read-id matcher of the assembler's `--mesh` path, on the
+shards of a mesh on one torch device.
 
-Twin of kmernator_tpu/parallel/dist_match.py at D = 1: `build_index`
-(its `build_index_fn`), `match` (its `match_fn`), `MeshReadIndex` and
-`mesh_match_pools` (a copy). The JAX build extracts canonical windows,
-routes each (key, read id) row to the shard that owns the key (owner hash,
-bucket scatter with an overflow count, all_to_all) and sorts the received
-rows by (key words, read id); the JAX match answers each query on its
-owner shard and merges the shards with a pmax. With one device the owner
-is always this device, all_to_all and pmax are the identity, and the one
-bucket of ceil(2N) >= N rows cannot overflow, so the app's retry at a
-larger capacity cannot fire: here the good windows are compacted in read
-order and sorted, and a query is answered by two searches over the sorted
-key lanes. The owner hash, the scatter, its retry and the all-reduce MAX
-that stands for pmax wait for D > 1, as in parallel/mesh.py.
+Twin of kmernator_tpu/parallel/dist_match.py: `build_index` (its
+`build_index_fn`), `match` and `match_shards` (its `match_fn`),
+`MeshReadIndex` and `mesh_match_pools` (a copy). The build extracts
+canonical windows from D contiguous blocks of the reads, routes each
+(key, read id) row to the shard that owns the key (owner hash, bucket
+scatter with an overflow count, the exchange of parallel/mesh.py) and
+sorts each shard's received rows by (key, read id); the match answers each
+query on its owner shard and merges the shards' answers as the JAX pmax
+does (only the owner writes an id, so the merge puts each answer in
+place).
 
 Keys are int64 lanes (ops/kmer.py `encode_lanes`: one lane for k <= 32,
 up to 3 for k <= 96; `check_k` refuses more). Read ids are the rows of the
-padded read set (the JAX `read_global`, which is arange(B) at D = 1).
+read set padded to a multiple of D (the JAX `read_global`).
 
 Differences from the JAX module besides the torch tensors:
-- The index holds only the good windows (C rows, possibly 0), not D * C
-  rows padded with the sentinel; every query still gets the same ids.
+- A shard's index holds only the rows it received (possibly none), not
+  D * C rows padded with the sentinel; every query still gets the same ids.
 - Within a key's run the ids ascend, as the JAX sort's read-id key makes
-  them: the rows enter one stable sort on the key lanes in read order.
+  them: a shard receives its rows in read order (each source is a
+  contiguous block of reads, sent in order, and a bucket keeps its rows'
+  order), and they go through one stable sort on the key lanes.
 - `match_queries` takes any number of queries: the JAX one pads Q to a
   power of two, since XLA compiles one program a shape, and cuts the
   padded rows off its answer. It also compacts the hits on the device
@@ -32,57 +31,90 @@ Differences from the JAX module besides the torch tensors:
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import math
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from kmernator_tpu_torch.io.reads import BASE_CODE
-from kmernator_tpu_torch.ops.kmer import (check_k, encode_lanes,
+from kmernator_tpu_torch.ops.kmer import (SENTINEL_LANE, SENTINEL_WORD,
+                                          check_k, encode_lanes,
                                           extract_kmers_flat, nwords)
 from kmernator_tpu_torch.ops.weights import good_kmer_mask, window_weights
 from kmernator_tpu_torch.parallel.device_spectrum import (
     extract_canonical_cols, pack_readset, ragged_to_padded, search_lanes,
     sort_lanes)
-from kmernator_tpu_torch.parallel.mesh import Mesh
+from kmernator_tpu_torch.parallel.mesh import (
+    Mesh, bucket_loads, bucket_slots, exchange, owners, plane_width,
+    scatter_plane)
+
+Shard = Tuple[List[torch.Tensor], torch.Tensor]
 
 
 def build_index(mesh: Mesh, k: int, codes: torch.Tensor,
-                good2d: torch.Tensor, lengths: torch.Tensor
-                ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """The sorted read index on mesh.device (the JAX `build_index_fn`
-    step at D = 1). codes [B, L] (0..3), good2d [B, NW] bool (the exact
-    host mask), lengths [B]; all on mesh.device. Returns (L [C] int64 key
-    lanes sorted lexicographically, rid [C] int32): one row per good
-    window, ids ascending within a key's run."""
+                good2d: torch.Tensor, lengths: torch.Tensor,
+                capacity_factor: float = 2.0
+                ) -> Tuple[Optional[List[Shard]], int]:
+    """The sorted read index of every shard (the JAX `build_index_fn`
+    step). codes [B, L] (0..3), good2d [B, NW] bool (the exact host mask),
+    lengths [B]; all on mesh.device, B a multiple of D = mesh.size. Each of
+    D contiguous blocks of reads routes its good windows' (key, read id)
+    rows to their owners in buckets of C = ceil(N / D * capacity_factor)
+    rows (N windows a block; the planes as wide as the largest bucket,
+    `plane_width`). Returns (shards, 0), shard d being (L [n_d]
+    int64 key lanes sorted lexicographically, rid [n_d] int32) with ids
+    ascending within a key's run; or (None, the rows past C) when a bucket
+    overflows, for the caller to retry at a larger capacity_factor."""
     check_k(k)
+    D = mesh.size
+    B = codes.shape[0]
+    if B % D:
+        raise ValueError("%d reads do not split into %d shards" % (B, D))
     canon, _, valid = extract_canonical_cols(codes, lengths, k)
     NW = valid.shape[1]
-    # At D = 1 the JAX bucket scatter is a compaction (see the module
-    # docstring): the good windows are taken in read order instead
-    sel = torch.nonzero((good2d & valid).reshape(-1)).squeeze(1)
+    g = (good2d & valid).reshape(D, -1)
     del valid
-    lanes = [lane[sel] for lane in encode_lanes(
-        [c.reshape(-1) for c in canon])]
+    N = g.shape[1]
+    words = [torch.where(g, c.reshape(D, -1), SENTINEL_WORD) for c in canon]
     del canon
-    # a stable sort keeps the read order of the rows within a key's run:
-    # the order the JAX sort gets from its read-id key
-    if len(lanes) == 1:
-        lanes[0], perm = torch.sort(lanes[0], stable=True)
-    else:
-        lanes, perm = sort_lanes(lanes)
-    rid = torch.div(sel[perm], NW, rounding_mode="floor").to(torch.int32)
-    return lanes, rid
+    owner = owners(words, D)
+    C = math.ceil(N / D * capacity_factor)
+    loads = bucket_loads(owner, g, D)
+    width = plane_width(loads)
+    if width > C:
+        return None, int((loads - C).clamp_(min=0).sum())
+    win_slot, _ = bucket_slots(owner, g, D, width)
+    del owner, g
+    rid = torch.div(torch.arange(B * NW, device=codes.device), NW,
+                    rounding_mode="floor").reshape(D, N)
+    recv_rid = exchange(scatter_plane(rid, win_slot, D, width, -1))
+    recv = [exchange(scatter_plane(lane, win_slot, D, width, SENTINEL_LANE))
+            for lane in encode_lanes(words)]
+    del words, win_slot, rid
+    shards = []
+    for d in range(D):
+        keep = torch.nonzero(recv_rid[d] >= 0).squeeze(1)
+        lanes = [lane[d][keep] for lane in recv]
+        # a stable sort keeps the read order of the rows within a key's
+        # run: the order the JAX sort gets from its read-id key
+        if len(lanes) == 1:
+            lanes[0], perm = torch.sort(lanes[0], stable=True)
+        else:
+            lanes, perm = sort_lanes(lanes)
+        shards.append((lanes, recv_rid[d][keep][perm].to(torch.int32)))
+    return shards, 0
 
 
 def match(index_lanes: List[torch.Tensor], index_rid: torch.Tensor,
           queries: List[torch.Tensor], max_ids: int = 16,
           min_depth: int = 0) -> torch.Tensor:
-    """Read ids of each query (the JAX `match_fn` step at D = 1). queries:
-    L [Q] int64 key lanes on the index's device. Returns [Q, max_ids]
-    int32: the first max_ids ids of the query's run, -1 past its end and
-    for every id of a run shorter than max(min_depth, 1) (the KmerMatch
-    purgeMinDepth gate, ref: src/KmerMatch.h:100)."""
+    """Read ids of each query in one shard's index (the JAX `match_fn`
+    step on the owner). queries: L [Q] int64 key lanes on the index's
+    device. Returns [Q, max_ids] int32: the first max_ids ids of the
+    query's run, -1 past its end and for every id of a run shorter than
+    max(min_depth, 1) (the KmerMatch purgeMinDepth gate, ref:
+    src/KmerMatch.h:100)."""
     eff_min = max(int(min_depth), 1)
     C = index_rid.numel()
     if C == 0:
@@ -99,16 +131,38 @@ def match(index_lanes: List[torch.Tensor], index_rid: torch.Tensor,
     return torch.where(valid, rid, torch.full_like(rid, -1))
 
 
+def match_shards(shards: List[Shard], query_cols: List[torch.Tensor],
+                 max_ids: int = 16, min_depth: int = 0) -> torch.Tensor:
+    """Read ids of each query over all shards (the JAX `match_fn`):
+    query_cols W [Q] int64 canonical words. Each shard answers the queries
+    it owns; the others are -1 there, so the JAX pmax over the shards'
+    answers is each answer put in its rows. Returns [Q, max_ids] int32."""
+    lanes = encode_lanes(query_cols)
+    D = len(shards)
+    if D == 1:
+        return match(*shards[0], lanes, max_ids, min_depth)
+    owner = owners(query_cols, D)
+    out = torch.full((lanes[0].numel(), max_ids), -1, dtype=torch.int32,
+                     device=lanes[0].device)
+    for d, (index_lanes, index_rid) in enumerate(shards):
+        sel = torch.nonzero(owner == d).squeeze(1)
+        out[sel] = match(index_lanes, index_rid, [lane[sel] for lane in lanes],
+                         max_ids, min_depth)
+    return out
+
+
 class MeshReadIndex:
-    """The read index on mesh.device, a drop-in for ops.match.KmerReadIndex
-    (the JAX `MeshReadIndex` at D = 1). The host side is the JAX one: the
-    exact good mask from window_weights, discarded reads masked out; the
-    codes, mask and lengths go to the device once."""
+    """The read index on the mesh's shards, a drop-in for
+    ops.match.KmerReadIndex (the JAX `MeshReadIndex`). The host side is the
+    JAX one: the exact good mask from window_weights, discarded reads
+    masked out, the reads padded to a multiple of D; the codes, mask and
+    lengths go to the device once. A bucket overflow retries the build at
+    twice the capacity_factor, up to 32."""
 
     def __init__(self, mesh: Mesh, rs, k: int, min_depth: int = 2,
                  min_quality: int = 3, output_base: int = 33,
                  min_kmer_quality: float = 0.10,
-                 max_ids: int = 4096):
+                 max_ids: int = 4096, capacity_factor: float = 2.0):
         self.k = k
         self.mesh = mesh
         self.max_ids = max_ids
@@ -125,12 +179,26 @@ class MeshReadIndex:
         good2d = ragged_to_padded(exact_good, nw, NW, fill=False)
         good2d &= ~rs.discarded[:, None]
         del codes_raw, markup, p, w, exact_good
+        pad = (-codes.shape[0]) % mesh.size
+        if pad:
+            codes = np.concatenate([codes, np.zeros((pad, L), codes.dtype)])
+            good2d = np.concatenate([good2d, np.zeros((pad, NW), bool)])
+            lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
 
         def dev(a):
             return torch.from_numpy(a).to(mesh.device)
 
-        self._lanes, self._rid = build_index(mesh, k, dev(codes),
-                                             dev(good2d), dev(lengths))
+        codes, good2d, lengths = dev(codes), dev(good2d), dev(lengths)
+        cap = capacity_factor
+        while True:
+            self._shards, overflow = build_index(mesh, k, codes, good2d,
+                                                 lengths, cap)
+            if not overflow:
+                break
+            cap *= 2.0  # hash-skewed reads: double bucket capacity
+            if cap > 32.0:
+                raise RuntimeError("matcher index bucket overflow even at "
+                                   "capacity %g" % cap)
         self.W = nwords(k)
 
     def match_queries(self, queries: np.ndarray):
@@ -140,8 +208,7 @@ class MeshReadIndex:
             return []
         cols = [torch.from_numpy(queries[:, w].astype(np.int64)).to(
             self.mesh.device) for w in range(queries.shape[1])]
-        ids = match(self._lanes, self._rid, encode_lanes(cols),
-                    self.max_ids, self.min_depth)
+        ids = match_shards(self._shards, cols, self.max_ids, self.min_depth)
         hit = ids >= 0
         # one copy to the host: the hits of each query, then the ids of
         # every hit in row-major order (ascending within a query)

@@ -38,6 +38,8 @@ import kmernator_tpu_torch.ops.external as torch_external
 import kmernator_tpu_torch.ops.vmatch as torch_vmatch
 from kmernator_tpu_torch.parallel import dist_match
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 # the artifact screen at edit distance 1: its distance-2 table takes
@@ -156,8 +158,9 @@ def test_assembler_byte_identical(tmp_path, inputs, name, k, engine,
     assert got.count(b">") == (5 if name == "phix" else 6)
     assert b"-l" in got            # some seed grew
     if engine == "mesh1":
-        assert len(built) == 1 and built[0]._rid.numel() > 1000
-        assert built[0]._lanes[0].device.type == "cpu"
+        assert len(built) == 1 and len(built[0]._shards) == 1
+        lanes, rid = built[0]._shards[0]
+        assert rid.numel() > 1000 and lanes[0].device.type == "cpu"
         host = str(tmp_path / "host.fa")
         assert torch_asm.run(["--device", "cpu", "--contig-file",
                               inputs[name][1]] + FLAGS
@@ -217,14 +220,14 @@ def test_contig_extender_byte_identical(tmp_path, inputs, dedup, capfd):
 
 
 def test_refusals(tmp_path, inputs):
-    """--mesh other than 1 and k > 96 on --mesh 1 are refused before the
-    input is read; --device takes cuda or cpu, and cuda without a visible
-    GPU raises (nothing falls back to the CPU)."""
+    """k > 96 on --mesh 2 and --mesh 1 is refused before the input is read
+    (--mesh N itself runs N shards); --device takes cuda or cpu, and cuda
+    without a visible GPU raises (nothing falls back to the CPU)."""
     seeds = inputs["phix"][1]
     base = ["--contig-file", seeds, "--out", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="--mesh 2"):
+    with pytest.raises(NotImplementedError, match="k=97"):
         torch_asm.run(["--device", "cpu", "--mesh", "2"] + base
-                      + ["31", "missing.fq"])
+                      + ["97", "missing.fq"])
     with pytest.raises(NotImplementedError, match="k=97"):
         torch_asm.run(["--device", "cpu", "--mesh", "1"] + base
                       + ["97", "missing.fq"])

@@ -18,6 +18,7 @@ from kmernator_tpu_torch.apps import filter_and_sort_sam
 from kmernator_tpu_torch.io import bam as tbam
 
 from sam_input import make_sam
+import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

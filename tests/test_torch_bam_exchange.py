@@ -30,6 +30,7 @@ from kmernator_tpu_torch.io import bam as tbam
 from kmernator_tpu_torch.parallel import bam_exchange as tex
 
 from sam_input import make_sam
+from torch_threads import ONE_THREAD
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT = 180
@@ -71,7 +72,7 @@ def _two_processes(module, args, env):
 
 def _env(**extra):
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update(PYTHONPATH=REPO, JAX_PLATFORMS="cpu", **extra)
+    env.update(PYTHONPATH=REPO, JAX_PLATFORMS="cpu", **ONE_THREAD, **extra)
     return env
 
 

@@ -6,6 +6,8 @@ import os
 import subprocess
 import sys
 
+from torch_threads import ONE_THREAD
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # run in a program of its own: register_path installs signal handlers in
@@ -35,7 +37,8 @@ print(default_action, n_paths, p.exitcode, os.path.isdir(parent_dir),
 
 def test_forked_worker_dies_on_sigterm_and_keeps_parent_paths(tmp_path):
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
-                          env=dict(os.environ, PYTHONPATH=REPO),
+                          env=dict(os.environ, PYTHONPATH=REPO,
+                                   **ONE_THREAD),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     default_action, n_paths, exitcode, kept, parent_handler = \

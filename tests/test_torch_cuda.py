@@ -27,6 +27,8 @@ from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel import mesh_stream as mst
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
 
+import torch_threads  # noqa: F401
+
 
 @pytest.fixture
 def cuda_device():
@@ -226,6 +228,138 @@ def test_mesh_stream_matches_cpu(cuda_device, k):
         assert np.array_equal(
             spectra[0].lookup_batch(codes, want, lengths, min_count=2),
             spectra[1].lookup_batch(codes, want, lengths, min_count=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,k", [(2, 31), (4, 31), (2, 63), (4, 95)])
+def test_mesh_stream_shards_match_cpu(cuda_device, D, k):
+    """D shard tables on the card: the owner hash, the bucket scatter and
+    the exchange route each batch as on the CPU; after every batch the
+    shards' keys and counts are equal and their weights within 1e-6 of the
+    total weight taken in; the same singletons purged under pressure, the
+    same overflow retries (a capacity_factor of 0.5 forces some), one
+    run-length launch a shard a drain, and the same lookups."""
+    rng = np.random.default_rng(7 * D + k)
+    B, L = 64, k + 69
+    genome = rng.integers(0, 4, 3000).astype(np.uint8)
+    NW = L - k + 1
+    spectra = [MeshStreamingSpectrum(make_mesh(D, dev), k, capacity=1500,
+                                     drain_threshold=B * NW // 2,
+                                     capacity_factor=0.5)
+               for dev in ("cpu", cuda_device)]
+    batches = []
+    w_in = 0.0
+    before = rl.launches
+    for _ in range(6):
+        codes = genome[rng.integers(0, 3000 - L, B)[:, None]
+                       + np.arange(L)[None, :]]
+        codes[B // 2:] = rng.integers(0, 4, (B - B // 2, L))
+        lengths = rng.integers(k - 1, L + 1, B).astype(np.int32)
+        good = rng.random((B, NW)) < 0.9
+        weights = rng.random((B, NW)).astype(np.float32)
+        w_in += float(weights[good].sum())
+        batches.append((codes, good, lengths))
+        for sp in spectra:
+            sp.add_batch(codes, good, lengths, weights2d=weights)
+        cpu, dev = (sp.to_numpy_tables() for sp in spectra)
+        assert np.array_equal(cpu[0], dev[0])
+        assert np.array_equal(cpu[1], dev[1])
+        np.testing.assert_allclose(dev[2], cpu[2], rtol=0, atol=1e-6 * w_in)
+    torch.cuda.synchronize()
+    assert spectra[1].drains >= 2
+    assert rl.launches - before == D * spectra[1].drains
+    assert spectra[1].purged_singletons == spectra[0].purged_singletons > 0
+    assert spectra[1].overflow_retries == spectra[0].overflow_retries > 0
+    assert spectra[1].table_counts.shape == (D, 1500)
+    assert all(x.device.type == "cuda" for x in spectra[1].table_lanes)
+    for codes, good, lengths in batches:
+        want = np.ones_like(good)
+        assert np.array_equal(
+            spectra[0].lookup_batch(codes, want, lengths, min_count=2),
+            spectra[1].lookup_batch(codes, want, lengths, min_count=2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2, 4])
+def test_shard_exchange_matches_cpu(cuda_device, D):
+    """The owner hash, bucket slots, send planes and exchange on the card
+    equal the CPU's at an overflowing C."""
+    from kmernator_tpu_torch.parallel import mesh as tm
+    rng = np.random.default_rng(D)
+    N = 100_000
+    words = [torch.from_numpy(rng.integers(0, 1 << 32, (D, N)))
+             for _ in range(3)]
+    real = torch.from_numpy(rng.random((D, N)) < 0.8)
+    out = []
+    for dev in ("cpu", cuda_device):
+        w = [x.to(dev) for x in words]
+        owner = tm.owner_hash_cols(w) % D
+        C = N // (2 * D)       # half a uniform share: buckets overflow
+        slot, overflow = tm.bucket_slots(owner, real.to(dev), D, C)
+        recv = tm.exchange(tm.scatter_plane(w[0], slot, D, C, -1))
+        out.append([owner, slot, overflow, recv])
+    for a, b in zip(out[1], out[0]):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert int(out[0][2].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,k", [(2, 21), (4, 51)])
+def test_extension_spectrum_shards_match_cpu(cuda_device, D, k):
+    """extension_spectrum_mesh at D shards on the card equals the CPU's:
+    13 run-length launches a shard."""
+    from kmernator_tpu_torch.parallel.mesh import extension_spectrum_mesh
+    rng = np.random.default_rng(D + k)
+    B, L = 400, 150
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    codes = genome[rng.integers(0, 20_000 - L, B)[:, None]
+                   + np.arange(L)[None, :]]
+    lengths = rng.integers(k - 5, L + 1, B).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (
+        codes, rng.random((B, L - k + 1)) < 0.9, rng.random((B, L)) < 0.9,
+        lengths)]
+    want = extension_spectrum_mesh(make_mesh(D, "cpu"), k, *args,
+                                   min_count=1)
+    before = rl.launches
+    got = extension_spectrum_mesh(make_mesh(D, cuda_device), k,
+                                  *[a.to(cuda_device) for a in args],
+                                  min_count=1)
+    torch.cuda.synchronize()
+    assert rl.launches - before == 13 * D and got[3] == want[3] == 0
+    for a, b in zip(got[0] + list(got[1:3]), want[0] + list(want[1:3])):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,k", [(2, 31), (4, 45)])
+def test_read_index_shards_match_cpu(cuda_device, D, k):
+    """The assembler's read index at D shards on the card: every shard's
+    lanes and ids, and match_shards, equal the CPU's."""
+    from kmernator_tpu_torch.parallel import dist_match as dm
+    rng = np.random.default_rng(D * k)
+    B, L = 3000, 150
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    codes = genome[rng.integers(0, 20_000 - L, B)[:, None]
+                   + np.arange(L)[None, :]]
+    lengths = rng.integers(k - 5, L + 1, B).astype(np.int32)
+    args = [torch.from_numpy(a) for a in (
+        codes, rng.random((B, L - k + 1)) < 0.9, lengths)]
+    cpu, _ = dm.build_index(make_mesh(D, "cpu"), k, *args)
+    gpu, _ = dm.build_index(make_mesh(D, cuda_device), k,
+                            *[a.to(cuda_device) for a in args])
+    for (gl, gr), (cl, cr) in zip(gpu, cpu):
+        for a, b in zip(gl + [gr], cl + [cr]):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    W = tk.nwords(k)
+    queries = [torch.from_numpy(rng.integers(0, 1 << 32, 2000))
+               for _ in range(W)]
+    lanes = tk.decode_lanes(cpu[0][0], W)
+    pick = torch.from_numpy(rng.integers(0, lanes[0].numel(), 2000))
+    queries = [torch.cat([q, c[pick]]) for q, c in zip(queries, lanes)]
+    want = dm.match_shards(cpu, queries, 16, 2)
+    got = dm.match_shards(gpu, [q.to(cuda_device) for q in queries], 16, 2)
+    assert (want >= 0).sum() > 1000
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -598,11 +732,12 @@ def test_read_index_and_match_match_cpu(cuda_device, k):
     codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
     good2d = rng.random((B, L - k + 1)) < 0.9
     cpu = dm.build_index(make_mesh(1, "cpu"), k, torch.from_numpy(codes),
-                         torch.from_numpy(good2d), torch.from_numpy(lengths))
+                         torch.from_numpy(good2d),
+                         torch.from_numpy(lengths))[0][0]
     gpu = dm.build_index(make_mesh(1, "cuda"), k,
                          torch.from_numpy(codes).to(cuda_device),
                          torch.from_numpy(good2d).to(cuda_device),
-                         torch.from_numpy(lengths).to(cuda_device))
+                         torch.from_numpy(lengths).to(cuda_device))[0][0]
     assert cpu[1].numel() > 100_000
     for a, b in zip(gpu[0] + [gpu[1]], cpu[0] + [cpu[1]]):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
@@ -618,9 +753,10 @@ def test_read_index_and_match_match_cpu(cuda_device, k):
 
 
 @pytest.mark.cuda
-def test_assembler_device_flag_and_mesh_refusal(cuda_device, tmp_path):
+def test_assembler_device_flag(cuda_device, tmp_path):
     """--device cuda with no visible GPU raises (a program with
-    CUDA_VISIBLE_DEVICES=""), and --mesh 2 is refused on the card."""
+    CUDA_VISIBLE_DEVICES=""), and k > 96 is refused at --mesh 2 on the
+    card."""
     import os
     import subprocess
     import sys
@@ -636,9 +772,9 @@ def test_assembler_device_flag_and_mesh_refusal(cuda_device, tmp_path):
          "--device", "cuda", "--mesh", "1"] + args + ["31", "missing.fq"],
         env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
-    with pytest.raises(NotImplementedError, match="--mesh 2"):
+    with pytest.raises(NotImplementedError, match="k=97"):
         asm.run(["--device", "cuda", "--mesh", "2"] + args
-                + ["31", "missing.fq"])
+                + ["97", "missing.fq"])
 
 
 @pytest.mark.cuda

@@ -8,6 +8,8 @@ import os
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -9,6 +9,8 @@ import torch
 from kmernator_tpu.parallel import device_spectrum as J
 from kmernator_tpu_torch.parallel import device_spectrum as T
 
+import torch_threads  # noqa: F401
+
 KS = [15, 21, 31, 32]
 
 

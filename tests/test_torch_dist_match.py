@@ -32,6 +32,8 @@ from kmernator_tpu_torch.parallel.device_spectrum import (
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.spectrum import pack_keys
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 MESH = make_mesh(1, "cpu")
@@ -130,9 +132,11 @@ def _jax_index(codes, good2d, lengths, k):
 
 
 def _port_index(codes, good2d, lengths, k):
-    return dm.build_index(MESH, k, torch.from_numpy(codes),
-                          torch.from_numpy(good2d),
-                          torch.from_numpy(lengths))
+    shards, overflow = dm.build_index(MESH, k, torch.from_numpy(codes),
+                                      torch.from_numpy(good2d),
+                                      torch.from_numpy(lengths))
+    assert overflow == 0 and len(shards) == 1
+    return shards[0]
 
 
 def _query_words(rs, k, rng, n_miss=6):
@@ -250,7 +254,7 @@ def test_empty_index(reads, case):
         got = dm.match(lanes, rid, _lanes(words), 8)
         assert (want == -1).all() and np.array_equal(got.numpy(), want)
         index = dm.MeshReadIndex(MESH, rs, k, min_depth=1)
-        assert index._rid.numel() == 0
+        assert [rid.numel() for _, rid in index._shards] == [0]
         assert index.match_queries(words) == [set()] * len(words)
     finally:
         rs.discarded[:] = False

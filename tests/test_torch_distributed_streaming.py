@@ -26,6 +26,8 @@ from kmernator_tpu.apps import filter_reads as jax_app
 from kmernator_tpu.apps.generate_metagenome import run as generate
 from kmernator_tpu_torch.apps import filter_reads as torch_app
 
+import torch_threads  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE = ["--kmer-scoring-type", "MEDIAN", "--mask-simple-repeats", "0",
         "--artifact-edit-distance", "1", "--min-read-length", "25"]

@@ -25,6 +25,8 @@ import torch
 from kmernator_tpu.parallel.pallas_hash import hash_insert as jax_hash_insert
 from kmernator_tpu_torch.parallel import hash_insert as hi
 
+from torch_threads import ONE_THREAD
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = hi.edge_cases()
 JAX_CASES = ["jax_test", "n1", "all_equal", "full_table", "wraparound",
@@ -220,7 +222,7 @@ print("LOADED", sorted(m for m in sys.modules
 
 def test_bench_entry_point_on_cpu():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env.update(PYTHONPATH=REPO, KMTPU_HASH_BENCH="1")
+    env.update(PYTHONPATH=REPO, KMTPU_HASH_BENCH="1", **ONE_THREAD)
     proc = subprocess.run([sys.executable, "-c", BENCH], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

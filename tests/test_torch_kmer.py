@@ -8,6 +8,8 @@ import torch
 from kmernator_tpu.ops import kmer as jk
 from kmernator_tpu_torch.ops import kmer as tk
 
+import torch_threads  # noqa: F401
+
 
 def test_pack16_matches_jax():
     rng = np.random.default_rng(0)

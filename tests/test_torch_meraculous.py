@@ -31,6 +31,8 @@ from kmernator_tpu_torch.parallel.device_spectrum import padded_to_ragged
 from kmernator_tpu_torch.parallel.mesh import (count_received_ext,
                                                window_extensions_device)
 
+import torch_threads  # noqa: F401
+
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
@@ -307,12 +309,13 @@ def test_host_engine_past_the_key_lanes(tmp_path, inputs):
 
 
 def test_refusals(tmp_path):
-    """--mesh other than 1 is refused with make_mesh's message, and --device
-    cuda without a visible GPU raises (nothing falls back to the CPU)."""
+    """k > 96 is refused at --mesh 2 as at --mesh 1, before the input is
+    read (--mesh N itself runs N shards), and --device cuda without a
+    visible GPU raises (nothing falls back to the CPU)."""
     out = str(tmp_path / "o")
-    with pytest.raises(NotImplementedError, match="--mesh 2"):
+    with pytest.raises(NotImplementedError, match="k=97"):
         torch_app.run(["--device", "cpu", "--mesh", "2", "--kmer-size",
-                       "21", "--out", out, "missing.fq"])
+                       "97", "--out", out, "missing.fq"])
     with pytest.raises(ValueError, match="--device"):
         torch_app.run(["--device", "tpu", "--kmer-size", "21", "--out", out,
                        "missing.fq"])

@@ -16,6 +16,8 @@ from kmernator_tpu_torch.ops.kmer import decode_lane, encode_lane
 from kmernator_tpu_torch.parallel import device_spectrum as T_ds
 from kmernator_tpu_torch.parallel import merge_sort as T
 
+import torch_threads  # noqa: F401
+
 
 def _keys(N, seed, wide=False):
     """(hi, lo) u32 keys: heavy duplicates and 5% sentinels, as

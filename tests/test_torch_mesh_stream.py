@@ -23,6 +23,8 @@ from kmernator_tpu.parallel.mesh_stream import (
 from kmernator_tpu_torch.parallel import mesh_stream as ms
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 
+import torch_threads  # noqa: F401
+
 B, L = 32, 64
 
 
@@ -153,8 +155,13 @@ def test_wire_packing_and_unpack():
 
 
 def test_one_device_only():
-    with pytest.raises(NotImplementedError, match="D > 1"):
-        make_mesh(2, "cpu")
+    """Every shard of a mesh lives on its one torch device: make_mesh(n)
+    is n shards for any n >= 1, whatever the number of cards."""
+    assert make_mesh(2, "cpu").size == 2
+    sp = ms.MeshStreamingSpectrum(make_mesh(4, "cpu"), 31, capacity=16)
+    assert sp.table_counts.shape == (4, 16) and sp.capacity_factor == 2.0
+    with pytest.raises(ValueError):
+        make_mesh(0, "cpu")
     # keys of at most 3 lanes: k = 96 is the widest table
     ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 96, capacity=16)
     with pytest.raises(NotImplementedError):

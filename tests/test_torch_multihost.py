@@ -16,6 +16,8 @@ import torch.distributed as dist
 
 from kmernator_tpu_torch.parallel import multihost as mh
 
+from torch_threads import ONE_THREAD
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _TWO = r"""
@@ -72,7 +74,7 @@ def _free_port() -> int:
 
 def test_two_gloo_processes(tmp_path):
     port = str(_free_port())
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **ONE_THREAD)
     procs = [subprocess.Popen([sys.executable, "-c", _TWO, str(r), port,
                                str(tmp_path)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,

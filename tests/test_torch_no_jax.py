@@ -3,10 +3,10 @@ interpreter imports every module of the port and runs the port's
 FilterReads CLI on its three engines (host, --mesh 1, --streaming --mesh
 1) on the CPU, the in-memory --mesh 1 with the on-device variant purge,
 both --mesh 1 paths at k = 33, the `--streaming --distributed X --nprocs
-1` engine, the MeraculousCounter CLI on its
-three engines (host, --streaming, --mesh 1), the nucleating assembler on
-its three matchers (host, --kmer-size 0, --mesh 1) and the contig
-extender (and, in a second interpreter, the small apps: fastq2fasta,
+1` engine, both --mesh paths at --mesh 2, the MeraculousCounter CLI on
+its three engines (host, --streaming, --mesh 1) and at --mesh 2, the
+nucleating assembler on its three matchers (host, --kmer-size 0, --mesh
+1) and at --mesh 2, and the contig extender (and, in a second interpreter, the small apps: fastq2fasta,
 randomly_sample, split_sequence, compare_spectrums, estimate_size,
 tnf_distance, bam_sort with SAM and BAM output, filter_and_sort_sam),
 then checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
@@ -17,6 +17,8 @@ import re
 import signal
 import subprocess
 import sys
+
+from torch_threads import ONE_THREAD
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -51,13 +53,15 @@ for name, extra, k in (
         ("x", ["--streaming", "--mesh", "1"], "33"),
         ("d", ["--streaming", "--streaming-chunk-mb", "0.005",
                "--distributed", "127.0.0.1:1", "--nprocs", "1",
-               "--mesh-batch", "32"], "31")):
+               "--mesh-batch", "32"], "31"),
+        ("m2", ["--mesh", "2"], "31"),
+        ("s2", ["--streaming", "--mesh", "2"], "31")):
     assert run(base + extra + ["--out", os.path.join(d, name), k,
                                inp]) == 0
     assert os.path.getsize(os.path.join(d, name + "-MinDepth2-in.fastq")) > 0
 from kmernator_tpu_torch.apps.meraculous_counter import run as mer_run
 for name, extra in (("mh", []), ("ms", ["--streaming"]),
-                    ("mm", ["--mesh", "1"])):
+                    ("mm", ["--mesh", "1"]), ("mm2", ["--mesh", "2"])):
     assert mer_run(["--device", "cpu"] + extra + [
         "--kmer-size", "21", "--out", os.path.join(d, name), inp]) == 0
     for suffix in (".mercount.m21", ".mergraph.m21.D2"):
@@ -70,7 +74,8 @@ with open(seeds, "wb") as f:
         f.write(b">s%d\n%s\n" % (i, acgt[genome[100 * i:100 * i + 60]]
                                    .tobytes()))
 for name, extra, k in (("ah", [], "21"), ("av", [], "0"),
-                       ("am", ["--mesh", "1"], "21")):
+                       ("am", ["--mesh", "1"], "21"),
+                       ("am2", ["--mesh", "2"], "21")):
     out = os.path.join(d, name + ".fa")
     assert asm_run(["--device", "cpu", "--contig-file", seeds,
                     "--max-iterations", "2", "--out", out] + extra
@@ -136,7 +141,7 @@ def _run_clean(script, tmp_path):
     workers hold the output pipes, so killing the interpreter alone could
     leave the test waiting on them."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = REPO
+    env.update(PYTHONPATH=REPO, **ONE_THREAD)
     proc = subprocess.Popen([sys.executable, "-c", PROLOGUE + script
                              + EPILOGUE, str(tmp_path)], env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,

@@ -20,6 +20,8 @@ from kmernator_tpu.parallel.pallas_count import (run_length_counts as
 from kmernator_tpu_torch.ops.kmer import encode_lane
 from kmernator_tpu_torch.parallel import run_length as rl
 
+import torch_threads  # noqa: F401
+
 
 def _torch_counts(hi, lo, good):
     return rl.run_length_counts(torch.from_numpy(hi.astype(np.int64)),

@@ -25,6 +25,8 @@ from kmernator_tpu_torch.apps import randomly_sample as t_rs
 from kmernator_tpu_torch.apps import split_sequence as t_ss
 from kmernator_tpu_torch.io.reads import load_reads
 
+from torch_threads import ONE_THREAD
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ACGT = np.frombuffer(b"ACGT", np.uint8)
 
@@ -190,7 +192,8 @@ def test_split_sequence_fifo_and_fork_command(reads, tmp_path):
                 "--out", str(d / "{Uniq}.fifo"), "--fork-command",
                 "cat %s > %s" % (d / "{Uniq}.fifo", d / "{FileNum}.out"),
                 reads["a"]],
-            env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu"),
+            env=dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
+                     **ONE_THREAD),
             capture_output=True, timeout=120)
         assert proc.returncode == 0, proc.stderr[-2000:]
         assert os.listdir(d) == ["000001.out"]   # the FIFO is gone

@@ -29,6 +29,8 @@ from kmernator_tpu.io.reads import load_reads as j_load_reads
 from kmernator_tpu_torch.apps import tnf_distance as ttnf
 from kmernator_tpu_torch.io.reads import load_reads
 
+import torch_threads  # noqa: F401
+
 BOUND = 4.0e-3
 SOUND = 1.0e-4
 CPU = torch.device("cpu")

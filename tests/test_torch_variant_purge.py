@@ -28,6 +28,8 @@ from kmernator_tpu_torch.apps import filter_reads as torch_app
 from kmernator_tpu_torch.parallel import mesh_stream as ms
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 
+import torch_threads  # noqa: F401
+
 
 def _canon(words, k):
     rc = revcomp_words(np, words, k)

@@ -30,6 +30,8 @@ from kmernator_tpu_torch.parallel.device_spectrum import (count_batch,
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
 
+import torch_threads  # noqa: F401
+
 BASE = ["--kmer-scoring-type", "MEDIAN", "--mask-simple-repeats", "0",
         "--artifact-edit-distance", "1", "--min-read-length", "25"]
 
