@@ -116,6 +116,23 @@ started together) and drives the port's paths on the card:
      time, the device time of its shard exchange and of its shards'
      drains or counting (CUDA events), run-length launches, overflow
      retries and peak device memory.
+ 18. `--nprocs 2` on one card: FilterReads across two processes, both
+     ranks on cuda:0, over gloo (the shard exchange's planes cross the
+     host: parallel/multihost.py `all_to_all_planes`). Each rank is a
+     child of this script (`--rank-child`, with phase 17's CUDA-event
+     instruments) under a time limit that, with any rank's failure, ends
+     both and fails the script. `--streaming --distributed` on phase 4's
+     input and the in-memory `--nprocs 2` on phase 5's (with
+     `--gathered-logs 1`: rank 0 prints both ranks' lines, rank 1 none)
+     against their host-engine outputs, the purge cell against phase 9's
+     (the same "Removed N"), and `--streaming --distributed
+     --streaming-parts 50000` on phase 5's input against the JAX app at
+     two processes on the CPU (a separate program, `JAX_PLATFORMS=cpu`),
+     with the same count of singletons purged. Per rank: wall time, the
+     exchange's calls and overflow retries and its time split into device
+     work, D2H copy, gloo and H2D copy, drains and run-length launches by
+     lane count, peak device memory; both ranks' launches join the
+     kernels line.
 Phase 3 also holds the kernel's two- and three-lane instantiations
 (k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
 and times them beside the one-lane kernel.
@@ -158,6 +175,9 @@ ASM_ITERATIONS = 5
 # phase 17's capacity-pressure run on phase 5's input: a shard capacity
 # far under its distinct keys
 PRESSURE_ROWS = 50_000
+# phase 18: two ranks of one job on the one card, each a child of this
+# script; a job that passes its time limit fails the phase
+NPROCS, RANK_TIMEOUT = 2, 600
 K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
 FP32_FLOPS = 67e12                   # H100 SXM data sheet, no tensor cores
 TNF_CONTIGS, TNF_GENOMES, TNF_GENOME_BP = 4096, 16, 1_600_000
@@ -615,14 +635,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
         host_out, t_host = host_from["host_out"], host_from["host_s"]
         host_log = host_from["host_log"]
     mine, want = outputs(port_out), outputs(host_out)
-    if not want or set(mine) != set(want):
-        raise SystemExit("%s: output files differ: %s vs %s"
-                         % (name, sorted(mine), sorted(want)))
-    for suffix in want:
-        with open(mine[suffix], "rb") as a, open(want[suffix], "rb") as b:
-            if a.read() != b.read():
-                raise SystemExit("%s: %s differs from the host engine"
-                                 % (name, suffix))
+    same_files(name, mine, want, "the host engine")
     if launches <= 0:
         raise SystemExit("%s: the run-length kernel was never launched"
                          % name)
@@ -1914,24 +1927,12 @@ def phase_bam(smi: str):
         "bam_sort", unmapped_args(one, "1") + [one + ".bam", inp], True)
     two = os.path.join(WORK, "two")
     coord = "127.0.0.1:%d" % free_port()
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "kmernator_tpu_torch.apps.bam_sort",
-         "--device", "cuda", "--distributed", coord, "--nprocs", "2",
-         "--procid", str(r)] + unmapped_args(two, "1") + [two + ".bam", inp],
-        env=env_with_root(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE) for r in range(2)]
-    try:
-        errs = [q.communicate(timeout=600)[1] for q in procs]
-    finally:
-        for q in procs:
-            q.kill()
-            q.wait()
-    walls["sort-bam-keep1-port-nprocs2-%d" % BAM_RECORDS] = (
-        time.perf_counter() - t0)
-    if any(q.returncode != 0 for q in procs):
-        raise SystemExit("bam: --nprocs 2 failed:\n%s" % b"\n".join(
-            e[-2000:] for e in errs).decode())
+    _, walls["sort-bam-keep1-port-nprocs2-%d" % BAM_RECORDS] = run_job(
+        "bam-nprocs2", [
+            [sys.executable, "-m", "kmernator_tpu_torch.apps.bam_sort",
+             "--device", "cuda", "--distributed", coord, "--nprocs", "2",
+             "--procid", str(r)] + unmapped_args(two, "1")
+            + [two + ".bam", inp] for r in range(2)], env_with_root())
     if streams(two) != streams(one):
         raise SystemExit("bam: --nprocs 2 gives another header or record "
                          "stream than one process")
@@ -2104,6 +2105,271 @@ def phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge, n_purge,
     return {"runs": fr + mr, "asm": ar}
 
 
+# the cross-process shard exchange of phase 18: the device work before the
+# transport, and its two copies (parallel/multihost.py all_to_all_planes)
+EXCHANGE_DEVICE = ("owners", "bucket_loads", "bucket_slots", "scatter_plane")
+COPIES = ("_planes_to_host", "_planes_to_device")
+
+
+def rank_child(figures: str, argv) -> int:
+    """Phase 18's child mode (`python chip_smoke.py --rank-child FIGURES --
+    ARGS`): one rank of a --nprocs job, `filter_reads.run(["--device",
+    "cuda"] + ARGS)` on the card, with phase 17's instruments: CUDA events
+    around the exchange's device work (EXCHANGE_DEVICE), its two copies
+    and each shard's drain, the host clock around its gloo collective
+    (`all_to_all_rows`), the run-length launches counted from 0 just before
+    the run. Writes the rank's figures as JSON to FIGURES; fails if jax or
+    the JAX package was loaded."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import kmernator_tpu_torch.apps.filter_reads as app
+    from kmernator_tpu_torch.parallel import mesh_stream
+    from kmernator_tpu_torch.parallel import multihost
+    from kmernator_tpu_torch.parallel import run_length as rl
+    tables, events, gloo = [], {}, {"calls": 0, "s": 0.0}
+
+    class Recorded(app.MeshStreamingSpectrum):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            tables.append(self)
+            self.caps = [self.cap]
+
+        def _maybe_grow(self, *a, **kw):
+            super()._maybe_grow(*a, **kw)
+            if self.cap != self.caps[-1]:
+                self.caps.append(self.cap)
+
+    plain_rows = multihost.all_to_all_rows
+
+    def rows_timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return plain_rows(*a, **kw)
+        finally:
+            gloo["calls"] += 1
+            gloo["s"] += time.perf_counter() - t0
+
+    app.MeshStreamingSpectrum = Recorded
+    multihost.all_to_all_rows = rows_timed
+    event_timed([(mesh_stream, n) for n in EXCHANGE_DEVICE]
+                + [(multihost, n) for n in COPIES]
+                + [(mesh_stream.MeshStreamingSpectrum, "_drain_shard")],
+                events)
+    torch.cuda.reset_peak_memory_stats()
+    rl.launches = 0
+    by_lanes = dict(rl.launches_by_lanes)
+    t0 = time.perf_counter()
+    rc = app.run(["--device", "cuda"] + list(argv))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = rl.launches
+    by_lanes = {L: rl.launches_by_lanes[L] - by_lanes[L] for L in by_lanes}
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "kmernator_tpu"))
+    if rc != 0 or loaded or len(tables) != 1:
+        print("rank child: rc %d, %d tables, jax modules %s"
+              % (rc, len(tables), loaded), file=sys.stderr)
+        return 1
+    sp = tables[0]
+    with open(figures, "w") as f:
+        json.dump({
+            "rank": multihost.process_index(), "wall_s": wall,
+            "device": torch.cuda.get_device_name(sp.device),
+            "table_on": str(sp.table_lanes[0].device), "shards": sp.S,
+            "mesh": sp.D, "caps": sp.caps, "drains": sp.drains,
+            "purged": sp.purged_singletons, "retries": sp.overflow_retries,
+            "launches": launches, "by_lanes": by_lanes,
+            "exchange_device_ms": events_ms(events, EXCHANGE_DEVICE),
+            "d2h_ms": events_ms(events, COPIES[:1]),
+            "h2d_ms": events_ms(events, COPIES[1:]),
+            "gloo_s": gloo["s"], "exchange_calls": gloo["calls"],
+            "drain_ms": events_ms(events, ["_drain_shard"]),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}, f)
+    return 0
+
+
+def run_job(name: str, commands, env):
+    """Runs `commands`, one a rank of one job, each in a session of its own
+    with its output in WORK/<name>.rank<r>.log. A rank that fails, or a
+    job past RANK_TIMEOUT, ends every rank and fails the phase. Returns
+    each rank's output and the job's wall seconds."""
+    logs = [os.path.join(WORK, "%s.rank%d.log" % (name, r))
+            for r in range(len(commands))]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for cmd, path in zip(commands, logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(
+                    cmd, env=env, stdout=out, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.perf_counter() - t0 > RANK_TIMEOUT:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            try:
+                os.killpg(p.pid, 9)
+            except ProcessLookupError:
+                pass
+            p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for path in logs:
+        with open(path, errors="replace") as f:
+            texts.append(f.read())
+        os.remove(path)
+    if len(procs) < len(commands) or any(p.returncode != 0 for p in procs):
+        raise SystemExit("%s: ranks exited %s after %.1f s (limit %d s):\n%s"
+                         % (name, [p.returncode for p in procs], wall,
+                            RANK_TIMEOUT, "\n".join(t[-3000:]
+                                                    for t in texts)))
+    return texts, wall
+
+
+def nprocs_job(name: str, args):
+    """The port's FilterReads with `args` as the NPROCS ranks of one job on
+    the card, each rank a child of this script (`rank_child`). Returns each
+    rank's figures, with its output under "log", and the job's wall
+    seconds."""
+    coord = "127.0.0.1:%d" % free_port()
+    figs = [os.path.join(WORK, "%s.rank%d.json" % (name, r))
+            for r in range(NPROCS)]
+    texts, wall = run_job(name, [
+        [sys.executable, os.path.abspath(__file__), "--rank-child", figs[r],
+         "--"] + list(args) + ["--distributed", coord, "--nprocs",
+                               str(NPROCS), "--procid", str(r)]
+        for r in range(NPROCS)], env_with_root())
+    out = []
+    for f, text in zip(figs, texts):
+        with open(f) as fh:
+            out.append(json.load(fh))
+        out[-1]["log"] = text
+        os.remove(f)
+    return out, wall
+
+
+def same_files(name: str, mine: dict, want: dict, oracle: str) -> None:
+    """The same output files (suffix: path), each byte-identical."""
+    if not want or set(mine) != set(want):
+        raise SystemExit("%s: output files differ: %s vs %s"
+                         % (name, sorted(mine), sorted(want)))
+    for suffix in want:
+        with open(mine[suffix], "rb") as a, open(want[suffix], "rb") as b:
+            if a.read() != b.read():
+                raise SystemExit("%s: %s differs from %s"
+                                 % (name, suffix, oracle))
+
+
+def phase_nprocs(cells, smi: str):
+    """Phase 18: FilterReads at --nprocs 2 with both ranks on the one card,
+    over gloo. cells: (name, input, reads, k, args, oracle) with oracle
+    an earlier run's result (its host-engine outputs and log) or None for
+    the JAX app at two processes (JAX_PLATFORMS=cpu: the card host's jax
+    sees the GPU, and two processes there would each take most of its
+    memory). Every output file byte-identical; each rank's table on the
+    card and one run-length launch a drain; "Removed N" as the oracle's;
+    the singletons purged as the JAX app's (none against the host engine);
+    under --gathered-logs, every line printed by rank 0."""
+    results = []
+    for name, fq, n_reads, k, args, oracle in cells:
+        port_out = os.path.join(WORK, name + "-port")
+        t_jax = None
+        if oracle is None:
+            jax_out = os.path.join(WORK, name + "-jax")
+            coord = "127.0.0.1:%d" % free_port()
+            env = env_with_root(JAX_PLATFORMS="cpu")
+            env.pop("XLA_FLAGS", None)
+            errs, t_jax = run_job(name + "-jax", [
+                [sys.executable, "-m", "kmernator_tpu.apps.filter_reads",
+                 "--jax-platform", "cpu"] + args + ["--out", jax_out]
+                + FLAGS + [str(k), fq, "--distributed", coord, "--nprocs",
+                           str(NPROCS), "--procid", str(r)]
+                for r in range(NPROCS)], env)
+            oracle = {"host_out": jax_out, "host_log": "\n".join(errs)}
+        ranks, wall = nprocs_job(name, args + ["--out", port_out] + FLAGS
+                                 + [str(k), fq])
+        same_files(name, outputs(port_out), outputs(oracle["host_out"]),
+                   "the host engine" if t_jax is None else
+                   "the JAX app at --nprocs 2")
+        for path in outputs(port_out).values():
+            os.remove(path)
+        lanes = (k + 31) // 32
+        for r in ranks:
+            if r["table_on"] != "cuda:0" or r["shards"] != 1 \
+                    or r["mesh"] != NPROCS or r["drains"] < 1 \
+                    or r["launches"] != r["drains"] \
+                    or r["by_lanes"][str(lanes)] != r["launches"]:
+                raise SystemExit("%s: rank %d: table on %s, %d of %d "
+                                 "shards, %d drains, run-length launches "
+                                 "%s" % (name, r["rank"], r["table_on"],
+                                         r["shards"], r["mesh"],
+                                         r["drains"], r["by_lanes"]))
+        purged = [r["purged"] for r in ranks]
+        want = re.findall(r"mesh streaming purged (\d+) singletons",
+                          oracle["host_log"])
+        if t_jax is not None and (len(set(purged)) != 1 or purged[0] <= 0
+                                  or want != [str(purged[0])] * NPROCS):
+            raise SystemExit("%s: the ranks purged %s singletons, the JAX "
+                             "app logged %s" % (name, purged, want))
+        if t_jax is None and any(purged):
+            raise SystemExit("%s: %s singletons purged" % (name, purged))
+        if "--variant-sigmas" in args:
+            found = [re.findall(r"Removed (\d+) kmer-variants", r["log"])
+                     for r in ranks]
+            host = re.findall(r"Removed (\d+) kmer-variants",
+                              oracle["host_log"])
+            if len(host) != 1 or found != [host] * NPROCS:
+                raise SystemExit("%s: the ranks removed %s, the host "
+                                 "engine %s" % (name, found, host))
+            log("%s: Removed %s kmer-variants on both ranks and on the "
+                "host" % (name, host[0]))
+        if "--gathered-logs" in args:
+            lines = [re.findall(r"^\S+ \S+ +[0-9.]+ \[(\d+)\] VERBOSE",
+                                r["log"], re.M) for r in ranks]
+            if lines[1] or sorted(set(lines[0])) != ["0", "1"] \
+                    or lines[0] != sorted(lines[0]):
+                raise SystemExit("%s: gathered log lines by rank %s"
+                                 % (name, lines))
+            log("%s: --gathered-logs: rank 0 printed %d lines of ranks "
+                "0 and 1 in rank order, rank 1 none"
+                % (name, len(lines[0])))
+        for r in ranks:
+            log("%s: rank %d on %s: %.2f s wall; exchange %d calls, %d "
+                "overflow retries: device %.1f ms, D2H %.1f ms, gloo %.2f "
+                "s, H2D %.1f ms; %d drains (%.1f ms), run_length launches "
+                "by L %s; table %s rows; peak device memory %.2f GiB"
+                % (name, r["rank"], r["device"], r["wall_s"],
+                   r["exchange_calls"], r["retries"],
+                   r["exchange_device_ms"], r["d2h_ms"], r["gloo_s"],
+                   r["h2d_ms"], r["drains"], r["drain_ms"], r["by_lanes"],
+                   " -> ".join("{:,}".format(c) for c in r["caps"]),
+                   r["peak_gib"]))
+        log("%s: byte-identical to %s; job %.2f s = %.0f reads/s%s; %s "
+            "singletons purged (%s)"
+            % (name, "the JAX app at --nprocs 2" if t_jax else
+               "the host engine", wall, n_reads / wall,
+               "; JAX app at --nprocs 2 on the CPU %.2f s" % t_jax
+               if t_jax else "", purged[0], smi))
+        if t_jax is not None:
+            for path in outputs(oracle["host_out"]).values():
+                os.remove(path)
+        results.append({"name": name, "k": k, "wall_s": wall,
+                        "reads": n_reads, "jax_s": t_jax,
+                        "launches": sum(r["launches"] for r in ranks),
+                        "by_lanes": {int(L): sum(r["by_lanes"][L]
+                                                 for r in ranks)
+                                     for L in ranks[0]["by_lanes"]},
+                        "ranks": [{key: v for key, v in r.items()
+                                   if key != "log"} for r in ranks]})
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2239,18 +2505,32 @@ def main() -> int:
     mesh_runs = phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge,
                              n_purge, purge_args, in_memory, runs, wide,
                              purge_run, mer, asm)
+    log("phase 17 --mesh N on one card ok [%.1f s]"
+        % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    nprocs_runs = phase_nprocs([
+        ("nprocs2-streaming", fq256, n256, K, ["--streaming"], runs[0]),
+        ("nprocs2-in-memory", fq32, n32, K,
+         ["--gathered-logs", "1", "--verbose", "1"], runs[1]),
+        ("nprocs2-purge", fq_purge, n_purge, K, purge_args, purge_run),
+        ("nprocs2-pressure", fq32, n32, K,
+         ["--streaming", "--streaming-parts", str(PRESSURE_ROWS)], None)],
+        smi)
     for r in runs[:2] + [wide[1], purge_run] + mer:
         for path in outputs(r["host_out"]).values():
             os.remove(path)
     for path in [fq256, fq32, fq_purge, asm[1]["seeds"]] + list(
             outputs(asm[1]["host_out"]).values()):
         os.remove(path)
-    log("phase 17 --mesh N on one card ok [%.1f s]"
+    log("phase 18 --nprocs 2 on one card ok [%.1f s]"
         % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer + dist
     launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
     runs += mesh_runs["runs"]
     launches += sum(r["launches"] for r in mesh_runs["runs"])
+    runs += nprocs_runs
+    launches += sum(r["launches"] for r in nprocs_runs)
     by_lanes = {L: sum(r["by_lanes"][L] for r in runs) for L in (1, 2, 3)}
     by_lanes[1] += count["run_length"]
     if min(by_lanes.values()) <= 0:
@@ -2384,4 +2664,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-child"] and sys.argv[3:4] == ["--"]:
+        sys.exit(rank_child(sys.argv[2], sys.argv[4:]))
     sys.exit(main())

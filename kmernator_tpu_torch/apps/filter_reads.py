@@ -6,33 +6,41 @@ Usage (the JAX app's flags, with --device in place of --jax-platform):
 
 Copied for kmernator_tpu_torch from kmernator_tpu/apps/filter_reads.py
 (CLI-compatible re-implementation of the reference FilterReads, ref:
-apps/FilterReads.cpp:83-215, apps/FilterReads.h:158-282). Every
-single-process engine runs here on the port's own code: the host engine
-without --mesh (in-memory, and streaming with its fork pool), the
-in-memory --mesh N engine and --streaming --mesh N. It differs from its
+apps/FilterReads.cpp:83-215, apps/FilterReads.h:158-282). Every engine
+runs here on the port's own code: the host engine without --mesh
+(in-memory, and streaming with its fork pool), the in-memory --mesh N
+engine and --streaming --mesh N in one process, and across processes
+(--distributed HOST:PORT --nprocs N --procid R, one process a rank) the
+in-memory engine and --streaming --distributed. It differs from its
 source in its package imports and in these places:
 
 - The device seams are the port's: `window_count_lookup_mesh`
-  (in-memory --mesh N), `_chunk_padded`, `_streaming_mesh_count`
-  (--streaming --mesh N, and inputs over 2 MB, which stream on their own)
-  and `run_streaming_distributed` (--streaming --distributed at one
-  process, with grow-on-pressure and its pass-2 lookups on the device)
-  count and look up on a torch device through MeshStreamingSpectrum. Those
-  that touch the device take it as a keyword, threaded from `run`.
-- `run_streaming_distributed` builds its table with the port's
-  `make_mesh(1, device)` in place of the global mesh, takes the port's
-  default mesh batch (2,048 reads, as the JAX `auto_mesh_batch` off a TPU)
-  and its collectives from the port's `parallel/multihost.py`.
+  (in-memory --mesh N and --nprocs N), `_chunk_padded`,
+  `_streaming_mesh_count` (--streaming --mesh N, and inputs over 2 MB,
+  which stream on their own) and `run_streaming_distributed`
+  (--streaming --distributed, with grow-on-pressure and its pass-2
+  lookups on the device) count and look up on a torch device through
+  MeshStreamingSpectrum. Those that touch the device take it as a
+  keyword, threaded from `run`.
+- Across processes the table is the port's `multihost.global_mesh`, one
+  shard a process on its `--device`, and the processes talk over
+  torch.distributed with gloo (`multihost.initialize`), so the shard
+  exchange's planes cross the host (parallel/multihost.py
+  `all_to_all_planes`); the JAX app runs jax.distributed and XLA
+  collectives. Ranks may share one card.
+- `run_streaming_distributed` and `window_count_lookup_mesh` take the
+  port's default mesh batch (2,048 reads, as the JAX `auto_mesh_batch`
+  off a TPU) and their collectives from the port's
+  `parallel/multihost.py`.
 - `run` takes `--device cuda|cpu` (default cuda; cuda without a visible
-  GPU raises) in place of `--jax-platform`, and checks `refusal` first.
-  `--distributed X` runs at one process: with --streaming (or an input
-  that streams on its own) in `run_streaming_distributed`, else on the
-  in-memory engine, which ignores the coordinator as the JAX app does.
+  GPU raises) in place of `--jax-platform`. `--distributed X` at one
+  process runs with --streaming (or an input that streams on its own) in
+  `run_streaming_distributed`, else on the in-memory engine, which
+  ignores the coordinator as the JAX app does.
 - `--mesh N` runs N shards in one process on the one device (the JAX
-  mesh of N devices; parallel/mesh.py). Refused, each waiting for the
-  multi-process port: --nprocs > 1 and --gathered-logs, so the
-  multi-process branches of `run` are not copied.
-  k > 96 is refused on a --mesh path and in the distributed engine (keys
+  mesh of N devices; parallel/mesh.py). Under --nprocs the mesh count is
+  ignored, as in JAX.
+  k > 96 is refused on a --mesh path and in the distributed engines (keys
   of at most 3 int64 lanes; the JAX package takes any k there).
 """
 from __future__ import annotations
@@ -224,9 +232,18 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
     of n_devices reads; with variant_sigmas > 0 the tables are purged on
     the device (min depth first, then the variant purge); pass 2 looks
     every window up on the device. Returns the host path's ragged (counts,
-    window_offsets)."""
+    window_offsets). Across processes (--nprocs) the mesh is the global
+    one, one shard a process, whatever n_devices: the padded read length,
+    the good windows that size the shards and the batch count are agreed
+    over the processes (a process with fewer reads feeds empty batches),
+    and each process counts its own reads."""
+    from kmernator_tpu_torch.parallel import multihost
     check_k(k)
+    multi = multihost.process_count() > 1
     L = max(rs.max_length(), k)
+    if multi:
+        # all processes must agree on the padded read length
+        L = multihost.allreduce_max_int(L)
     codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
     B = codes.shape[0]
     NW = L - k + 1
@@ -241,15 +258,27 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
     good2d &= ~rs.discarded[:, None]
     weights2d = ragged_to_padded(w.astype(np.float32), nw, NW, fill=0.0)
 
-    D = n_devices
+    if multi:
+        mesh = multihost.global_mesh(device)
+        # good windows summed over the processes size the shards
+        n_good = int(multihost.allgather_ints([int(exact_good.sum())]).sum())
+    else:
+        mesh = make_mesh(n_devices, device)
+        n_good = int(exact_good.sum())
+    D, S = mesh.size, mesh.local
     if capacity <= 0:
-        capacity = max(int(np.ceil(int(exact_good.sum()) / D * 1.25)), 4096)
+        capacity = max(int(np.ceil(n_good / D * 1.25)), 4096)
     if batch_reads <= 0:
         batch_reads = DEFAULT_BATCH_READS
-    batch_reads = max((batch_reads // D) * D, D)
+        Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
+                    % (batch_reads, L))
+    batch_reads = max((batch_reads // S) * S, S)
+    # every process issues the same collectives: the batch count is the
+    # most any process needs
     n_batches = max(-(-B // batch_reads), 1)
-    sp = MeshStreamingSpectrum(make_mesh(n_devices, device), k,
-                               capacity=capacity)
+    if multi:
+        n_batches = multihost.allreduce_max_int(n_batches)
+    sp = MeshStreamingSpectrum(mesh, k, capacity=capacity)
     for s in range(0, n_batches * batch_reads, batch_reads):
         sp.add_batch(_pad_rows(codes[s:s + batch_reads], batch_reads),
                      _pad_rows(good2d[s:s + batch_reads], batch_reads),
@@ -1624,8 +1653,8 @@ def run_streaming_distributed(opts, kopts, sopts, ropts, aopts, fopts,
     src/DistributedFunctions.h:749-1062), so the full table never reaches
     the host unless histograms ask for it. Outputs land as rank-ordered
     gathered files (rank 0 first — apps/FilterReads-P.cpp:190-197). Peak
-    per-process RSS is O(chunk + table/P). The port runs it at one
-    process (D = 1)."""
+    per-process RSS is O(chunk + table/P). The table is the global mesh's:
+    one shard a process, on each process's `device`."""
     from kmernator_tpu_torch.io.chunked import stream_partition_readsets
     from kmernator_tpu_torch.io.stream import estimate_raw_kmers
     from kmernator_tpu_torch.parallel import multihost as mh
@@ -1738,7 +1767,7 @@ def run_streaming_distributed(opts, kopts, sopts, ropts, aopts, fopts,
                 stats["reads"] += rs.n
             yield rs, (codes, good2d, lengths, weights2d)
 
-    mesh = make_mesh(1, device)
+    mesh = mh.global_mesh(device)
     D = mesh.size
     L_glob = -(-k // 32) * 32
     batch_reads = mesh_batch
@@ -1930,22 +1959,6 @@ def run_streaming_distributed(opts, kopts, sopts, ropts, aopts, fopts,
     return 0
 
 
-def _flag_value(argv: List[str], flag: str):
-    return argv[argv.index(flag) + 1] if flag in argv else None
-
-
-def refusal(argv: List[str]):
-    """The reason this port cannot run `argv` yet, or None."""
-    if int(_flag_value(argv, "--nprocs") or 1) > 1:
-        return ("--nprocs %s (multi-process runs over torch.distributed) "
-                "is not ported yet (ROADMAP queue 1, item 3); --distributed "
-                "runs at --nprocs 1, and --mesh N runs N shards in one "
-                "process" % _flag_value(argv, "--nprocs"))
-    if int(_flag_value(argv, "--gathered-logs") or 0) > 0:
-        return ("--gathered-logs (rank-gathered logs) is not ported yet "
-                "(ROADMAP queue 1, item 3)")
-    return None
-
 
 def run(argv: List[str]) -> int:
     """FilterReads. The JAX app's arguments, with --device cuda|cpu
@@ -1956,9 +1969,6 @@ def run(argv: List[str]) -> int:
         i = argv.index("--device")
         device_name = argv[i + 1]
         del argv[i:i + 2]
-    why = refusal(argv)
-    if why:
-        raise NotImplementedError("kmernator_tpu_torch FilterReads: " + why)
     device = resolve_device(device_name)
     opts = GeneralOptions()
     kopts = KmerBaseOptions()
@@ -1993,8 +2003,8 @@ def run(argv: List[str]) -> int:
         i = argv.index("--streaming-parts")
         streaming_capacity = int(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    # multi-process mode (the FilterReads-P mpirun analogue): `refusal`
-    # has turned away --nprocs > 1, so this is one process
+    # multi-process mode (the FilterReads-P mpirun analogue): every process
+    # runs this same command with its own --procid
     dist_coord, dist_nprocs, dist_procid = None, 1, 0
     if "--distributed" in argv:
         i = argv.index("--distributed")
@@ -2110,9 +2120,22 @@ def run(argv: List[str]) -> int:
         Log.flush_gathered()
         return rc
 
+    multi = dist_nprocs > 1
+    if multi:
+        from kmernator_tpu_torch.parallel import multihost
+        multihost.initialize(dist_coord, dist_nprocs, dist_procid)
+        if mesh_devices == 0:
+            mesh_devices = -1  # distributed implies the mesh count path
+
     Log.verbose(1, "Reading input files")
-    rs = load_reads(opts.input_file, opts.fastq_base_quality,
-                    opts.fastq_output_base_quality, opts.keep_read_comment)
+    if multi:
+        rs = multihost.load_partitioned_reads(
+            opts.input_file, opts.fastq_base_quality,
+            opts.fastq_output_base_quality, opts.keep_read_comment)
+    else:
+        rs = load_reads(opts.input_file, opts.fastq_base_quality,
+                        opts.fastq_output_base_quality,
+                        opts.keep_read_comment)
     Log.verbose(1, "loaded %d reads" % rs.n)
     rs.identify_pairs()
 
@@ -2131,9 +2154,15 @@ def run(argv: List[str]) -> int:
         Log.verbose(1, "filter affected (trimmed/removed) %d reads" % out.affected)
         # diverted-read outputs (shared builder: divert_blobs above)
         blobs = divert_blobs(rs, out, opts, aopts)
-        for path, blob in blobs.items():
-            with open(path, "wb") as f:
-                f.write(blob)
+        if multi and opts.output_file and (aopts.phix_output
+                                           or aopts.filter_output):
+            # every rank must join the gathered write even with no picks
+            for path in multihost.allgather_strings(list(blobs.keys())):
+                multihost.write_gathered(path, blobs.get(path, b""))
+        else:
+            for path, blob in blobs.items():
+                with open(path, "wb") as f:
+                    f.write(blob)
 
     if dopts.dedup_mode > 0 and dopts.dedup_edit_distance != -1:
         from kmernator_tpu_torch.ops.dedup import filter_duplicate_fragments
@@ -2205,10 +2234,19 @@ def run(argv: List[str]) -> int:
     if opts.output_file:
         outputs = select_reads(rs, trims, spectrum, opts, kopts, sopts, ropts,
                                opts.input_file)
-        for path, data in outputs.items():
-            with open(path, "wb") as f:
-                f.write(data)
-            Log.verbose(1, "wrote %s (%d bytes)" % (path, len(data)))
+        if multi:
+            # rank-ordered gathered writes over the union of output keys
+            # (ref: DistributedOfstreamMap close, rank0-first append order,
+            # apps/FilterReads-P.cpp:190-197)
+            for path in multihost.allgather_strings(list(outputs.keys())):
+                multihost.write_gathered(path, outputs.get(path, b""))
+                Log.verbose(1, "wrote %s (gathered)" % path)
+        else:
+            for path, data in outputs.items():
+                with open(path, "wb") as f:
+                    f.write(data)
+                Log.verbose(1, "wrote %s (%d bytes)" % (path, len(data)))
+    # collective when --gathered-logs: all ranks reach this point
     Log.flush_gathered()
     return 0
 

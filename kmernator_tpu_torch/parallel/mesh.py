@@ -16,6 +16,13 @@ The port's `Mesh` is N shards on one torch device, whatever the number of
 cards: the shard planes carry a leading axis of N, and `exchange`, the
 all_to_all, is a transpose of that axis with the destination axis.
 
+`--nprocs P` is P processes with one shard each (parallel/multihost.py
+`global_mesh`, the JAX global mesh at one device a process). A process's
+planes carry a leading axis of 1, and `exchange` is an all_to_all over
+torch.distributed (`multihost.all_to_all_planes`: gloo, through the
+host). Every size that a collective moves is agreed first: `plane_width`
+is the largest bucket load over all processes.
+
 Words are int64 tensors holding values in [0, 2^32) (ops/kmer.py); the
 owner hash runs on the W key words, never on the int64 key lanes, and
 multiplies in 16-bit halves so that no int64 product overflows.
@@ -34,14 +41,34 @@ from kmernator_tpu_torch.ops.kmer import (MASK32, SENTINEL_LANE,
                                           encode_lanes)
 from kmernator_tpu_torch.parallel.device_spectrum import (
     extract_canonical_cols, is_sentinel, sort_lanes)
+from kmernator_tpu_torch.parallel.multihost import (all_to_all_planes,
+                                                    allreduce_max_int)
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
 
 
 @dataclass(frozen=True)
 class Mesh:
-    """A one-axis mesh of `size` shards, all on `device`."""
+    """A one-axis mesh of `size` shards over `nprocs` processes: this
+    process (`rank`) holds `local` of them, global shards `first` to
+    `first + local - 1`, all on `device`. Either every shard is in one
+    process (nprocs == 1) or each process holds one (size == nprocs)."""
     device: torch.device
     size: int = 1
+    rank: int = 0
+    nprocs: int = 1
+
+    def __post_init__(self):
+        if self.nprocs > 1 and self.size != self.nprocs:
+            raise ValueError("a mesh over %d processes holds one shard a "
+                             "process, not %d" % (self.nprocs, self.size))
+
+    @property
+    def local(self) -> int:
+        return self.size // self.nprocs
+
+    @property
+    def first(self) -> int:
+        return self.rank * self.local
 
 
 def make_mesh(n_devices: int = 1, device="cuda") -> Mesh:
@@ -111,6 +138,8 @@ def bucket_slots(owner: torch.Tensor, real: torch.Tensor, D: int,
     S, N = owner.shape
     win_slot = torch.full_like(owner, -1)
     overflow = torch.zeros(S, dtype=torch.int64, device=owner.device)
+    if N == 0:   # a process with no candidates left in a purge chunk
+        return win_slot, overflow
     zero = torch.zeros(1, dtype=torch.int64, device=owner.device)
     for d in range(D):
         mine = real & (owner == d)
@@ -158,27 +187,41 @@ def bucket_scatter_cols(key_cols: List[torch.Tensor], good: torch.Tensor,
 
 
 def exchange(send: torch.Tensor) -> torch.Tensor:
-    """The all_to_all of the shards' send planes: [D_src, D_dst, C, ...] ->
-    the received [D_dst, D_src * C, ...], destination d holding every
-    source's bucket d in source order. The reply travels the same way:
-    exchange(x.reshape(D_dst, D_src, C)) gives [D_src, D_dst * C], which a
-    source reads at its win_slot. Callers use only this contract."""
-    D, D2, C = send.shape[:3]
-    return send.transpose(0, 1).reshape((D2, D * C) + tuple(send.shape[3:]))
+    """The all_to_all of the local shards' send planes: [D_src_local, D, C,
+    ...] -> the received [D_dst_local, D * C, ...], each local destination
+    d holding every source's bucket d in source order. The reply travels
+    the same way: exchange(x.reshape(D_dst_local, D, C)) gives
+    [D_src_local, D * C], which a source reads at its win_slot. Callers use
+    only this contract. With every shard in this process (D_src_local ==
+    D) it is a transpose; with one shard a process, an all_to_all over the
+    processes (`multihost.all_to_all_planes`), every process passing the
+    same shape."""
+    S, D, C = send.shape[:3]
+    rest = tuple(send.shape[3:])
+    if S == D:
+        return send.transpose(0, 1).reshape((D, D * C) + rest)
+    if S != 1:
+        raise ValueError("%d local shards of %d: a mesh holds every shard "
+                         "in one process or one a process" % (S, D))
+    return all_to_all_planes(send[0]).reshape((1, D * C) + rest)
 
 
 def plane_width(loads: torch.Tensor) -> int:
     """The columns a send plane needs: the largest bucket load of `loads`
-    ([S, D], from bucket_loads), at least 1. The JAX planes are C wide, the
-    rows past a bucket's load the sentinel, which every receiver drops;
-    the port's planes stop at the largest load (one host sync)."""
-    return max(int(loads.max()) if loads.numel() else 0, 1)
+    ([S, D], from bucket_loads) over every process, at least 1. The JAX
+    planes are C wide, the rows past a bucket's load the sentinel, which
+    every receiver drops; the port's planes stop at the largest load (one
+    host sync, and one allreduce across processes, so that every process
+    sends planes of one shape)."""
+    return max(allreduce_max_int(int(loads.max()) if loads.numel() else 0),
+               1)
 
 
 def bucket_capacity(width: int, C: int, limit: int) -> Tuple[int, int]:
     """The callers' retry on overflow: C doubled while the largest bucket
-    load `width` is past it. Returns (C, retries); raises once C passes
-    `limit`."""
+    load `width` (`plane_width`: over every process, so that every process
+    takes the same C and retries) is past it. Returns (C, retries); raises
+    once C passes `limit`."""
     retries = 0
     while width > C:
         C *= 2

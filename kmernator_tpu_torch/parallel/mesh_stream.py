@@ -1,11 +1,12 @@
 """Streaming shard tables on a mesh: the port of mesh_stream.py.
 
 Twin of kmernator_tpu/parallel/mesh_stream.py `MeshStreamingSpectrum`: D =
-mesh.size shard tables, all on the mesh's one torch device.
+mesh.size shard tables, S = mesh.local of them in this process on its
+torch device (every shard at one process; one a process under --nprocs).
 
   route:   unpack the 2-bit codes and 1-bit good mask, extract canonical
            keys, pre-mask non-good windows to the sentinel; the batch,
-           padded to a multiple of D reads, splits into D source blocks,
+           padded to a multiple of S reads, splits into S source blocks,
            and each block's real windows go to the shard their owner hash
            names (parallel/mesh.py: bucket scatter into send planes, C
            doubled while a bucket overflows, then the exchange). Each shard
@@ -31,7 +32,7 @@ mesh.size shard tables, all on the mesh's one torch device.
 
 A shard table is L = ceil(W/2) int64 key lanes (ops/kmer.py encode_lanes:
 one lane for k <= 32, up to 3 for k <= 96), int32 counts and float32
-weights, each [D, cap] on the mesh's device. Keys and counts are bit-equal
+weights, each [S, cap] on the mesh's device. Keys and counts are bit-equal
 to the JAX drain's. Run weights are sums of the run's window weights taken
 from a float64 prefix sum over the shard's sorted drain, differenced at
 run ends and rounded to float32 once. The JAX drain (its `_drain_fn`)
@@ -42,6 +43,18 @@ float32 ulps of the drain's total weight (the tests hold them to 1e-6 of
 it); the port's run weights are the host engine's float64 sums to float32
 rounding. The shards laid end to end are not in key order: `finalize`
 sorts the keys on the host, as the JAX one does.
+
+Across processes every decision is taken from the same global reduction
+as in JAX, so that every process reaches every collective in the same
+order and the bytes are those of the JAX app at the same layout: the
+route's plane width and C retry (the largest bucket load of any
+process), the pre-drain growth bound (the most real rows any process
+staged), the drain's purged count (summed) and fill (the largest), the
+purge's chunk count, round loop and purged count, and `finalize`, where
+every process receives the whole table. A process with no rows left
+feeds empty batches. The purge routes each candidate to its owner's
+process through the exchange (with its threshold beside it), where in
+one process it is searched on its owner's shard directly.
 
 Differences from the JAX purge, none of which changes its marks (a set
 union over candidates): a candidate is searched in the shard its owner
@@ -87,6 +100,9 @@ from kmernator_tpu_torch.parallel.device_spectrum import (
 from kmernator_tpu_torch.parallel.mesh import (
     Mesh, bucket_capacity, bucket_loads, bucket_slots, exchange, owners,
     plane_width, scatter_plane)
+from kmernator_tpu_torch.parallel.multihost import (allgather_host,
+                                                    allgather_ints,
+                                                    allreduce_max_int)
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
 from kmernator_tpu_torch.utils.logging import Log
@@ -214,7 +230,7 @@ def _shell_cols(cols: List[torch.Tensor], k: int) -> List[torch.Tensor]:
 class MeshStreamingSpectrum:
     """Persistent hash-sharded spectrum built by streaming batches (the JAX
     MeshStreamingSpectrum): D = mesh.size shard tables of `capacity` rows
-    each, on mesh.device.
+    each, the S = mesh.local of this process on mesh.device.
 
     capacity = rows a shard. Beyond it, a shard's drain purges singletons,
     exactly as the JAX package does (lowest keys kept). max_capacity >
@@ -231,6 +247,7 @@ class MeshStreamingSpectrum:
         self.mesh = mesh
         self.device = mesh.device
         self.D = D = mesh.size
+        self.S = S = mesh.local
         self.k = k
         self.W = nwords(k)
         self.L = nlanes(self.W)
@@ -241,18 +258,18 @@ class MeshStreamingSpectrum:
         # staged rows a shard that trigger a merge into the table (a
         # shard's drain sorts cap + staged rows)
         self.drain_threshold = int(drain_threshold) or self.cap // 2
-        self.table_lanes = [torch.full((D, self.cap), SENTINEL_LANE,
+        self.table_lanes = [torch.full((S, self.cap), SENTINEL_LANE,
                                        dtype=torch.int64, device=self.device)
                             for _ in range(self.L)]
-        self.table_counts = torch.zeros((D, self.cap), dtype=torch.int32,
+        self.table_counts = torch.zeros((S, self.cap), dtype=torch.int32,
                                         device=self.device)
-        self.table_weights = torch.zeros((D, self.cap), dtype=torch.float32,
+        self.table_weights = torch.zeros((S, self.cap), dtype=torch.float32,
                                          device=self.device)
-        # received rows of each batch: (L key lanes, weights), [D, D * width]
+        # received rows of each batch: (L key lanes, weights), [S, D * width]
         self._staged: List[Tuple[List[torch.Tensor], torch.Tensor]] = []
         self._staged_rows = 0   # D * C a batch, as JAX stages its planes
-        self._staged_real = 0   # good windows staged, from the host mask
-        self._last_filled = 0   # most rows a shard kept in the last drain
+        self._staged_real = 0   # this process's good windows staged
+        self._last_filled = 0   # most rows any shard kept in the last drain
         self.purged_singletons = 0
         self.overflow_retries = 0
         self.drains = 0
@@ -265,18 +282,19 @@ class MeshStreamingSpectrum:
     def _route(self, codes, mask2d, lengths, weights2d=None,
                with_weights: bool = False):
         """One host batch through the exchange: the reads, padded to a
-        multiple of D, split into D contiguous blocks (one a source shard);
-        each block's windows that are masked-in and valid go to their
-        owners in buckets of C rows, C = ceil(N / D * capacity_factor) for
-        N windows a block, doubled while a bucket overflows (the JAX
+        multiple of S, split into S contiguous blocks (one a local source
+        shard); each block's windows that are masked-in and valid go to
+        their owners in buckets of C rows, C = ceil(N / D * capacity_factor)
+        for N windows a block, doubled while a bucket overflows (the JAX
         retry, counted in overflow_retries, up to 64 N); the planes are as
-        wide as the largest bucket (`plane_width`, at most C). Returns
-        (received key lanes L x [D, D * width], received weights [D, D *
+        wide as the largest bucket of any process (`plane_width`, at most
+        C). Every process passes a batch of the same shape. Returns
+        (received key lanes L x [S, D * width], received weights [S, D *
         width] (weights2d, or 1.0 a window when it is None) or None without
-        with_weights, win_slot [D, N] into [D, D * width], C)."""
-        D = self.D
+        with_weights, win_slot [S, N] into [S, D * width], C)."""
+        D, S = self.D, self.S
         codes, mask2d = np.asarray(codes), np.asarray(mask2d)
-        pad = (-codes.shape[0]) % D
+        pad = (-codes.shape[0]) % S
         if pad:
             codes, mask2d = _pad_rows(codes, pad), _pad_rows(mask2d, pad)
             lengths = _pad_rows(np.asarray(lengths), pad)
@@ -289,10 +307,10 @@ class MeshStreamingSpectrum:
         cols, _, valid = extract_canonical_cols(
             dev_codes, self._to_dev(np.asarray(lengths)), self.k)
         del dev_codes
-        m = (dev_mask & valid).reshape(D, -1)
+        m = (dev_mask & valid).reshape(S, -1)
         del dev_mask, valid
         N = m.shape[1]
-        words = [torch.where(m, c.reshape(D, -1), SENTINEL_WORD)
+        words = [torch.where(m, c.reshape(S, -1), SENTINEL_WORD)
                  for c in cols]
         del cols
         owner = owners(words, D)
@@ -307,9 +325,9 @@ class MeshStreamingSpectrum:
                 for lane in encode_lanes(words)]
         recv_w = None
         if with_weights:
-            w = torch.ones((D, N), dtype=torch.float32, device=self.device) \
+            w = torch.ones((S, N), dtype=torch.float32, device=self.device) \
                 if weights2d is None else self._to_dev(
-                    np.asarray(weights2d, np.float32)).reshape(D, -1)
+                    np.asarray(weights2d, np.float32)).reshape(S, -1)
             recv_w = exchange(scatter_plane(w, win_slot, D, width, 0.0))
         return recv, recv_w, win_slot, C
 
@@ -319,7 +337,10 @@ class MeshStreamingSpectrum:
         f32 (default 1.0 per good window). Routes and stages the received
         rows; counts D * C staged rows a shard, as JAX stages its C-wide
         planes (sentinel padding included), and drains once they reach
-        drain_threshold, so that the drains fall on the JAX batches."""
+        drain_threshold, so that the drains fall on the JAX batches. Across
+        processes every process calls it the same number of times with
+        batches of the same shape (a process with no reads left passes
+        an empty one)."""
         recv, recv_w, _, C = self._route(codes, good2d, lengths, weights2d,
                                          with_weights=True)
         self._staged.append((recv, recv_w))
@@ -331,23 +352,25 @@ class MeshStreamingSpectrum:
     def _drain(self):
         if not self._staged:
             return
-        D = self.D
         # grow first, so this merge cannot purge below the ceiling: at
         # worst every real staged row is a new key, spread over the shards
-        # at twice the uniform share (the JAX allowance for hash skew)
+        # at twice the uniform share (the JAX allowance for hash skew),
+        # the bound taken from the process that staged the most
         if self.max_capacity > self.cap:
+            staged_real = allreduce_max_int(self._staged_real)
             self._maybe_grow(
-                self._last_filled + (2 * self._staged_real) // D + 1,
+                self._last_filled + (2 * staged_real) // self.D + 1,
                 headroom=1)
         staged = self._staged
         self._staged = []
         self._staged_rows = 0
         self._staged_real = 0
-        filled = []
-        for d in range(D):
-            rows = [s[1].reshape(D, -1)[d] for s in staged]
+        kept = []
+        for d in range(self.S):
+            rows = [s[1].reshape(self.S, -1)[d] for s in staged]
             keys = [torch.cat([self.table_lanes[j][d]]
-                              + [s[0][j].reshape(D, -1)[d] for s in staged])
+                              + [s[0][j].reshape(self.S, -1)[d]
+                                 for s in staged])
                     for j in range(self.L)]
             counts = torch.cat([self.table_counts[d]]
                                + [torch.ones(r.numel(), dtype=torch.int32,
@@ -355,14 +378,19 @@ class MeshStreamingSpectrum:
                                   for r in rows])
             weights = torch.cat([self.table_weights[d]] + rows)
             del rows
-            filled.append(self._drain_shard(d, keys, counts, weights))
+            kept.append(self._drain_shard(d, keys, counts, weights))
         self.drains += 1
-        self._last_filled = max(filled)
+        # every process's purged rows and fullest shard
+        got = allgather_ints([sum(p for _, p in kept),
+                              max(f for f, _ in kept)])
+        self.purged_singletons += int(got[:, 0].sum())
+        self._last_filled = int(got[:, 1].max())
         self._maybe_grow(self._last_filled)
 
-    def _drain_shard(self, d: int, keys, counts, weights) -> int:
+    def _drain_shard(self, d: int, keys, counts, weights) -> Tuple[int, int]:
         """Shard d's table becomes the runs of (keys, counts, weights) its
-        table rows and staged rows: returns the rows it keeps."""
+        table rows and staged rows: returns the rows it keeps and the
+        singletons it purged."""
         # 1) sort by key; run totals at run ends from the run-length kernel
         skeys, perm = sort_lanes(keys)
         del keys
@@ -396,8 +424,7 @@ class MeshStreamingSpectrum:
                     | (single & (torch.cumsum(single, 0)
                                  <= self.cap - min(n_solid, self.cap))))
         filled = self._compact(d, run_keys, run_counts, run_w, keep)
-        self.purged_singletons += n_real - filled
-        return filled
+        return filled, n_real - filled
 
     def _maybe_grow(self, rows: int, headroom: int = 2):
         """Grow every shard table (4x steps) while rows * headroom > cap,
@@ -408,7 +435,7 @@ class MeshStreamingSpectrum:
         while (self.max_capacity > self.cap
                and rows * headroom > self.cap):
             pad = min(3 * self.cap, self.max_capacity - self.cap)
-            grow = (self.D, pad)
+            grow = (self.S, pad)
             self.table_lanes = [
                 torch.cat([t, torch.full(grow, SENTINEL_LANE,
                                          dtype=torch.int64,
@@ -458,21 +485,22 @@ class MeshStreamingSpectrum:
         """Per-window counts [B, NW] int32 for one batch against the
         tables (0 if absent or below min_count). good2d marks the windows
         that WANT counts: each goes to its owner through the exchange, the
-        owner searches its shard, and the counts come back the same way."""
+        owner searches its shard, and the counts come back the same way.
+        Across processes every process calls it with batches of the same
+        shape, and gets the counts of its own batch."""
         self._drain()
-        D = self.D
         B, L = np.shape(codes)
         recv, _, win_slot, _ = self._route(codes, good2d, lengths)
         zero = torch.zeros((), dtype=torch.int32, device=self.device)
         cnt = torch.zeros_like(recv[0], dtype=torch.int32)
-        for d in range(D):
+        for d in range(self.S):
             q = [lane[d] for lane in recv]
             pos, hit = self._search(d, q)
             c = torch.where(hit & ~is_sentinel(q), self.table_counts[d][pos],
                             zero)
             cnt[d] = torch.where(c >= min_count, c, zero)
         del recv
-        back = exchange(cnt.reshape(D, D, -1))   # [D_src, D_dst * width]
+        back = exchange(cnt.reshape(self.S, self.D, -1))   # [S, D * width]
         counts = torch.where(win_slot >= 0,
                              back.gather(1, win_slot.clamp(min=0)), zero)
         NW = L - self.k + 1
@@ -494,7 +522,8 @@ class MeshStreamingSpectrum:
         are zeroed and rows below min_depth dropped, shard by shard.
         Thresholds in float32 as the JAX mesh path has them. chunk_rows
         bounds the candidate rows searched at once (0: by device,
-        PURGE_CHUNK_ROWS). Returns the number of rows purged."""
+        PURGE_CHUNK_ROWS). Returns the number of rows purged in every
+        shard, on every process."""
         if variant_sigmas <= 0.0:
             return 0
         self._drain()
@@ -515,20 +544,22 @@ class MeshStreamingSpectrum:
                                       float(min_variant_kmer_depth),
                                       chunk_rows)
             self.purge_stats["rounds"] += 1
-            changed = bool((marks != prev).any())
+            changed = allreduce_max_int(int((marks != prev).any()))
             prev = marks
             if not changed:
                 break
-        n_purged = int(prev.sum())
+        n_purged = int(allgather_ints([int(prev.sum())]).sum())
         self._apply_purge(prev, max(min_depth, 1))
         return n_purged
 
     def _purge_round(self, vals0, active, sigmas: float, dist: int,
                      min_var: float, chunk_rows: int) -> torch.Tensor:
-        """The marks [D, cap] bool that the `active` sources set: the JAX
+        """The marks [S, cap] bool that the `active` sources set: the JAX
         `_purge_round_fn` over every chunk of a round. A candidate is
         searched in the shard that owns it (its owner hash), the one shard
-        where the JAX exchange would take it."""
+        where the JAX exchange would take it: in this process, or, across
+        processes, on its owner's process (`_mark_remote`). Every process
+        takes as many chunks of each group as the process with the most."""
         dev, k, cap, D = self.device, self.k, self.cap, self.D
         flat_lanes = [t.reshape(-1) for t in self.table_lanes]
         src = torch.nonzero(active.reshape(-1)).squeeze(1)
@@ -539,13 +570,14 @@ class MeshStreamingSpectrum:
             lim = _f32(min_var, dev) * (20 ^ d).to(torch.float32)
             d = torch.where((d > 1) & ~(v > lim), d - 1, d)
         self.purge_stats["sources"] += src.numel()
-        marks = torch.zeros((D, cap + 1), dtype=torch.bool, device=dev)
+        marks = torch.zeros((self.S, cap + 1), dtype=torch.bool, device=dev)
         for dd in range(1, dist + 1):
             group = d == dd
             g_src, g_thr = src[group], thr[group]
             per_source = sum((4 * k) ** e for e in range(1, dd + 1))
             step = max(chunk_rows // per_source, 1)
-            for s0 in range(0, g_src.numel(), step):
+            n_chunks = allreduce_max_int(-(-g_src.numel() // step))
+            for s0 in range(0, n_chunks * step, step):
                 idx = g_src[s0:s0 + step]
                 frontier = decode_lanes([lane[idx] for lane in flat_lanes],
                                         self.W)
@@ -557,6 +589,10 @@ class MeshStreamingSpectrum:
                     lanes = encode_lanes(frontier)
                     owner = owners(frontier, D)
                     lim = fthr * _recip_f32(20 ^ (e - 1), dev)
+                    self.purge_stats["candidates"] += lanes[0].numel()
+                    if self.S < D:
+                        self._mark_remote(vals0, marks, lanes, owner, lim)
+                        continue
                     for o in range(D):
                         sel = torch.nonzero(owner == o).squeeze(1)
                         q = [lane[sel] for lane in lanes]
@@ -565,8 +601,26 @@ class MeshStreamingSpectrum:
                         victim = (hit & ~is_sentinel(q) & (val > 0.0)
                                   & (val < lim[sel]))
                         marks[o][torch.where(victim, pos, cap)] = True
-                    self.purge_stats["candidates"] += lanes[0].numel()
         return marks[:, :cap]
+
+    def _mark_remote(self, vals0, marks, lanes, owner, lim) -> None:
+        """Across processes: this process's candidates (key lanes, owners
+        and thresholds, [n] each) go to their owners' processes through the
+        exchange, as one source block, and each process marks the rows of
+        its shard that the candidates it received name (a row below its
+        candidate's threshold)."""
+        D, cap = self.D, self.cap
+        real = torch.ones_like(owner, dtype=torch.bool)[None]
+        width = plane_width(bucket_loads(owner[None], real, D))
+        win_slot, _ = bucket_slots(owner[None], real, D, width)
+        q = [exchange(scatter_plane(lane[None], win_slot, D, width,
+                                    SENTINEL_LANE))[0] for lane in lanes]
+        qlim = exchange(scatter_plane(lim[None], win_slot, D, width,
+                                      0.0))[0]
+        pos, hit = self._search(0, q)
+        val = vals0[0][pos]
+        victim = hit & ~is_sentinel(q) & (val > 0.0) & (val < qlim)
+        marks[0][torch.where(victim, pos, cap)] = True
 
     def _apply_purge(self, marks: torch.Tensor, min_depth: int) -> None:
         """Zero the marked rows and drop rows below min_depth, shard by
@@ -577,7 +631,7 @@ class MeshStreamingSpectrum:
                              self.table_counts)
         weights = torch.where(marks, torch.zeros_like(self.table_weights),
                               self.table_weights)
-        for d in range(self.D):
+        for d in range(self.S):
             self._compact(d, [t[d] for t in self.table_lanes], counts[d],
                           weights[d], counts[d] >= min_depth)
 
@@ -595,21 +649,21 @@ class MeshStreamingSpectrum:
     # -------------------- state carry --------------------
 
     def to_numpy_tables(self):
-        """The tables as they stand (staged rows not merged), in the JAX
-        layout: (key word planes [W, D, cap] u32, counts [D, cap] i32,
-        weights [D, cap] f32)."""
+        """This process's tables as they stand (staged rows not merged), in
+        the JAX layout: (key word planes [W, S, cap] u32, counts [S, cap]
+        i32, weights [S, cap] f32)."""
         cols = decode_lanes(self.table_lanes, self.W)
         planes = np.stack([c.cpu().numpy().astype(np.uint32) for c in cols])
         return (planes, self.table_counts.cpu().numpy(),
                 self.table_weights.cpu().numpy())
 
     def from_numpy_tables(self, cols, counts, weights):
-        """Replace the tables with JAX-layout ones (key word planes
-        [W, D, cap] u32, counts [D, cap] i32, weights [D, cap] f32), each
-        shard key-sorted with sentinels trailing, as the JAX drain leaves
-        it. Staged rows are dropped."""
+        """Replace this process's tables with JAX-layout ones (key word
+        planes [W, S, cap] u32, counts [S, cap] i32, weights [S, cap] f32),
+        each shard key-sorted with sentinels trailing, as the JAX drain
+        leaves it. Staged rows are dropped."""
         cols = np.asarray(cols)
-        shape = (self.W, self.D, self.cap)
+        shape = (self.W, self.S, self.cap)
         if cols.shape != shape:
             raise ValueError("expected key planes of shape %s, got %s"
                              % (shape, cols.shape))
@@ -622,10 +676,10 @@ class MeshStreamingSpectrum:
         self.table_lanes = lanes
         # torch.tensor copies: the table never aliases the caller's arrays
         self.table_counts = torch.tensor(
-            np.asarray(counts, np.int32).reshape(self.D, self.cap),
+            np.asarray(counts, np.int32).reshape(self.S, self.cap),
             device=self.device)
         self.table_weights = torch.tensor(
-            np.asarray(weights, np.float32).reshape(self.D, self.cap),
+            np.asarray(weights, np.float32).reshape(self.S, self.cap),
             device=self.device)
         self._staged = []
         self._staged_rows = 0
@@ -635,23 +689,25 @@ class MeshStreamingSpectrum:
                   weights: np.ndarray = None):
         """Replace the tables from a host (keys [M, W] u32, counts [M])
         table (the JAX set_table): each key goes to the shard its owner
-        hash names, and each shard is key-sorted with sentinels trailing.
-        Weights default to the counts. Raises when a shard overflows its
-        capacity. Staged rows are dropped."""
-        D, cap, W = self.D, self.cap, self.W
+        hash names, each process keeping its own shards, and each shard is
+        key-sorted with sentinels trailing. Weights default to the counts.
+        Raises when any shard overflows its capacity. Staged rows are
+        dropped. Across processes every process passes the same table."""
+        D, S, cap, W = self.D, self.S, self.cap, self.W
         keys = np.asarray(keys, np.uint32).reshape(-1, W)
-        kcols = np.full((W, D, cap), 0xFFFFFFFF, np.uint32)
-        ccols = np.zeros((D, cap), np.int32)
-        wcols = np.zeros((D, cap), np.float32)
+        kcols = np.full((W, S, cap), 0xFFFFFFFF, np.uint32)
+        ccols = np.zeros((S, cap), np.int32)
+        wcols = np.zeros((S, cap), np.float32)
         if len(keys):
             if weights is None:
                 weights = np.asarray(counts).astype(np.float32)
             own = owners([torch.from_numpy(keys[:, w].astype(np.int64))
                           for w in range(W)], D).numpy()
-            for d in range(D):
-                sel = np.flatnonzero(own == d)
-                if len(sel) > cap:
-                    raise RuntimeError("shard %d overflows capacity" % d)
+            over = np.flatnonzero(np.bincount(own, minlength=D) > cap)
+            if len(over):
+                raise RuntimeError("shard %d overflows capacity" % over[0])
+            for d in range(S):
+                sel = np.flatnonzero(own == self.mesh.first + d)
                 sel = sel[np.argsort(pack_keys(keys[sel]), kind="stable")]
                 kcols[:, d, :len(sel)] = keys[sel].T
                 ccols[d, :len(sel)] = np.asarray(counts)[sel]
@@ -663,12 +719,13 @@ class MeshStreamingSpectrum:
     def finalize(self, min_depth: int = 2, with_weights: bool = False):
         """Tables to host: (keys [M, W] u32 sorted, counts [, weights]).
         The shards laid end to end are not in key order, so the keys are
-        sorted on the host, as the JAX finalize sorts them."""
+        sorted on the host, as the JAX finalize sorts them. Across
+        processes every process receives the whole table."""
         self._drain()
-        cnt = self.table_counts.cpu().numpy().reshape(-1)
-        wt = self.table_weights.cpu().numpy().reshape(-1)
+        cnt = allgather_host(self.table_counts.reshape(-1))
+        wt = allgather_host(self.table_weights.reshape(-1))
         real = cnt >= min_depth
-        ks = [c.cpu().numpy().reshape(-1).astype(np.uint32)
+        ks = [allgather_host(c.reshape(-1)).astype(np.uint32)
               for c in decode_lanes(self.table_lanes, self.W)]
         keys = np.stack([c[real] for c in ks], axis=-1)
         counts = cnt[real]

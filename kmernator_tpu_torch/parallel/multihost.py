@@ -15,19 +15,30 @@ path, so a one-process run never touches torch.distributed.
 Differences from the source:
 - `initialize` calls `torch.distributed.init_process_group("gloo",
   init_method="tcp://" + coordinator, ...)` in place of
-  `jax.distributed.initialize`; `sync_global_devices` is `dist.barrier()`.
+  `jax.distributed.initialize`, and registers the group's
+  `destroy_process_group` to run at exit; `sync_global_devices` is
+  `dist.barrier()`.
 - `write_gathered_file` moves a part with `os.replace` and, where the part
   and the output lie on different filesystems (`EXDEV`), copies it and
   deletes the part; the source raises there.
 - `all_to_all_rows` is new: the exchange that the JAX module's callers
   run as a `jax.lax.all_to_all` over `global_mesh` (one row a process,
   so D is the number of processes; parallel/bam_exchange.py).
-- Not ported: `global_mesh`, `to_global` and `to_local` (at D = 1 the
-  port's `parallel/mesh.py` `make_mesh` takes their place), and
-  `load_partitioned_reads`, which comes with D > 1.
+- `all_to_all_planes` is new: `all_to_all_rows` for a device tensor. The
+  planes cross the host, since gloo takes CPU tensors: one copy to the
+  host, one `all_to_all_single`, one copy back to the device. This is
+  the transport of the shard exchange across processes
+  (parallel/mesh.py `exchange`), not a fallback.
+- `global_mesh(device)` is the port's `Mesh` of D = process_count()
+  shards, one on each process's `device` (the JAX global mesh at one
+  device a process). `allgather_host` takes a numpy array or a tensor
+  on any device.
+- Not ported: `to_global` and `to_local`. A process holds its own shard
+  as a tensor on its device; no global array is assembled.
 """
 from __future__ import annotations
 
+import atexit
 import errno
 import os
 import shutil
@@ -55,8 +66,32 @@ def initialize(coordinator: Optional[str] = None,
     if num_processes > 1:
         dist.init_process_group("gloo", init_method="tcp://" + coordinator,
                                 world_size=num_processes, rank=process_id)
+        # a group left to the interpreter's teardown can abort the process
+        # at exit ("terminate called without an active exception", seen
+        # on a loaded host); one destroyed first does not
+        atexit.register(dist.destroy_process_group)
     os.environ["KMERNATOR_TPU_RANK"] = str(process_index())
     return process_index(), process_count()
+
+
+def global_mesh(device="cuda"):
+    """The mesh over every process: D = process_count() shards, this
+    process's one on `device` (parallel/mesh.py `Mesh`)."""
+    from kmernator_tpu_torch.parallel.mesh import Mesh
+    return Mesh(torch.device(device), process_count(), process_index(),
+                process_count())
+
+
+def load_partitioned_reads(paths: List[str], fastq_base_quality: int = 33,
+                           output_base_quality: int = 33,
+                           comment_stored: bool = True):
+    """Each process parses its byte range of every input file
+    (ref: ReadSet::appendAllFiles(files, rank, size))."""
+    from kmernator_tpu_torch.io.reads import load_reads
+    rank, size = process_index(), process_count()
+    return load_reads(paths, fastq_base_quality, output_base_quality,
+                      comment_stored,
+                      byte_range=(rank, size) if size > 1 else None)
 
 
 def barrier() -> None:
@@ -81,8 +116,9 @@ def _allgather(a: np.ndarray) -> np.ndarray:
 
 
 def allgather_host(x) -> np.ndarray:
-    """Every process's rows of x (a numpy array or a tensor of the same
-    shape on each), concatenated in rank order along axis 0."""
+    """Every process's rows of x (a numpy array, or a tensor on any
+    device, of the same shape on each), concatenated in rank order along
+    axis 0, as a numpy array."""
     a = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
     if process_count() == 1:
         return a
@@ -99,6 +135,29 @@ def all_to_all_rows(send: np.ndarray) -> np.ndarray:
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t)
     return out.numpy()
+
+
+def all_to_all_planes(planes: torch.Tensor) -> torch.Tensor:
+    """all_to_all_rows for a tensor on any device: [P, ...] -> [P, ...],
+    row p to rank p, row s of the result from rank s, on the planes'
+    device. The rows cross the host (gloo takes CPU tensors): a copy to
+    the host, one all_to_all_single, a copy back. Every rank passes the
+    same shape and dtype."""
+    if process_count() == 1:
+        return planes
+    return _planes_to_device(all_to_all_rows(_planes_to_host(planes)),
+                             planes.device)
+
+
+# the two copies of all_to_all_planes, functions of their own so that each
+# can be timed apart from the collective
+
+def _planes_to_host(planes: torch.Tensor) -> np.ndarray:
+    return planes.cpu().numpy()
+
+
+def _planes_to_device(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(a).to(device)
 
 
 def allreduce_max_int(v: int) -> int:

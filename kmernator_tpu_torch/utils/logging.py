@@ -6,9 +6,9 @@ stderr.
 
 Copied for kmernator_tpu_torch from kmernator_tpu/utils/logging.py. It
 differs from its source in its package imports and in `flush_gathered`,
-which lacks the source's multi-process gather over jax: the port runs one
-process, so the buffered lines are emitted as they are (its FilterReads
-refuses --gathered-logs).
+which gathers every process's lines over torch.distributed (the port's
+`parallel/multihost.py` `allgather_blobs`, gloo) in place of jax's
+`process_allgather`; it reads the process count from torch.distributed.
 """
 from __future__ import annotations
 
@@ -51,6 +51,12 @@ class Log:
             return
         blob = "\n".join(cls._buffer).encode()
         cls._buffer = []
+        from kmernator_tpu_torch.parallel import multihost
+        if multihost.process_count() > 1:
+            blobs = multihost.allgather_blobs(blob)
+            if multihost.process_index() != 0:
+                return
+            blob = b"\n".join(b for b in blobs if b)
         for line in blob.decode().split("\n"):
             if line:
                 cls._emit(line, force=True)

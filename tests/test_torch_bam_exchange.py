@@ -13,10 +13,7 @@ rank takes the records of every reference but the first (ROADMAP fault
 3k; the port keeps int64)."""
 import gzip
 import os
-import signal
-import socket
 import struct
-import subprocess
 import sys
 
 import numpy as np
@@ -30,50 +27,16 @@ from kmernator_tpu_torch.io import bam as tbam
 from kmernator_tpu_torch.parallel import bam_exchange as tex
 
 from sam_input import make_sam
-from torch_threads import ONE_THREAD
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TIMEOUT = 180
+from torch_ranks import run_ranks
+import torch_threads  # noqa: F401
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _two_processes(module, args, env):
-    """Runs `python -m module` as ranks 0 and 1 of a two-process job on a
-    free local port, each in a session of its own under the time limit
-    (which ends the session); a port taken between the probe and the bind
-    is retried on another."""
-    for _ in range(3):
-        coord = "127.0.0.1:%d" % _free_port()
-        procs = [subprocess.Popen(
-            [sys.executable, "-m", module, "--distributed", coord,
-             "--nprocs", "2", "--procid", str(r)] + args, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            start_new_session=True) for r in range(2)]
-        try:
-            errs = [p.communicate(timeout=TIMEOUT)[1] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    os.killpg(p.pid, signal.SIGKILL)
-                p.communicate()
-        if all(p.returncode == 0 for p in procs):
-            return
-        if not any("ddress already in use" in e for e in errs):
-            break
-    raise AssertionError("\n".join(e[-3000:] for e in errs))
-
-
-def _env(**extra):
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update(PYTHONPATH=REPO, JAX_PLATFORMS="cpu", **ONE_THREAD, **extra)
-    return env
+def _two_processes(module, args, extra_env):
+    """`python -m module --distributed C --nprocs 2 --procid r args` as
+    ranks 0 and 1 of one job (tests/torch_ranks.py)."""
+    run_ranks(lambda coord, r: [
+        sys.executable, "-m", module, "--distributed", coord, "--nprocs",
+        "2", "--procid", str(r)] + args, 2, extra_env)
 
 
 def _members(path):
@@ -119,8 +82,8 @@ def runs(tmp_path_factory):
         with open(bam, "wb") as f:
             f.write(tbam.write_bam(tbam.load_alignments(sam)))
         for name, module, env in (
-                ("port", "kmernator_tpu_torch.apps.bam_sort", _env()),
-                ("jax", "kmernator_tpu.apps.bam_sort", _env(
+                ("port", "kmernator_tpu_torch.apps.bam_sort", {}),
+                ("jax", "kmernator_tpu.apps.bam_sort", dict(
                     XLA_FLAGS="--xla_force_host_platform_device_count=1")),
                 ("one", None, None)):
             prefix = str(d / ("%s%d" % (name, n_refs)))

@@ -17,6 +17,7 @@ from kmernator_tpu.apps import filter_reads as jax_app
 from kmernator_tpu.apps.generate_metagenome import run as generate
 from kmernator_tpu_torch.apps import filter_reads as torch_app
 
+from torch_ranks import app_ranks
 from torch_threads import ONE_THREAD
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -228,18 +229,44 @@ def test_streaming_mesh_weights_reach_output(tmp_path, metagenome):
         np.testing.assert_allclose(totals[other], totals["jax"], rtol=5e-3)
 
 
-@pytest.mark.parametrize("argv,match", [
+@pytest.mark.parametrize("argv,lifted", [
     (["--streaming", "--distributed", "127.0.0.1:1", "--nprocs", "2"],
      "item 3"),
     (["--mesh", "1", "--nprocs", "2"], "item 3"),
     (["--mesh", "1", "--gathered-logs", "1"], "item 3"),
 ])
-def test_refused_flags(tmp_path, argv, match):
+def test_refused_flags(tmp_path, capfd, argv, lifted):
+    """The flags once refused (until ROADMAP queue 1 `lifted`) now run: at
+    --nprocs 2 as two gloo ranks (tests/torch_ranks.py, each its own
+    coordinator port), --gathered-logs 1 in this process, each
+    byte-identical to the one-process --mesh 1 run; gathered logs are
+    printed all at the end of the run, which is where the flag shows at one
+    process (tests/test_torch_nprocs.py holds the lines of two ranks to the
+    JAX app's)."""
     inp = str(tmp_path / "in.fastq")
     _graft_input(inp)
-    with pytest.raises(NotImplementedError, match=match):
-        torch_app.run(["--device", "cpu"] + argv
-                      + ["--out", str(tmp_path / "o")] + BASE + ["31", inp])
+    assert torch_app.run(["--device", "cpu", "--mesh", "1", "--out",
+                          str(tmp_path / "one")] + BASE + ["31", inp]) == 0
+    out = str(tmp_path / "flags")
+    if "--nprocs" in argv:
+        i = argv.index("--nprocs")
+        rest = [a for j, a in enumerate(argv) if j not in (i, i + 1)]
+        if "--distributed" in rest:
+            i = rest.index("--distributed")
+            rest = rest[:i] + rest[i + 2:]
+        app_ranks("kmernator_tpu_torch.apps.filter_reads",
+                  rest + ["--out", out] + BASE + ["31", inp], 2)
+    else:
+        capfd.readouterr()
+        assert torch_app.run(["--device", "cpu", "--verbose", "1"] + argv
+                             + ["--out", out] + BASE + ["31", inp]) == 0
+        err = capfd.readouterr().err
+        assert "VERBOSE: Reading input files" in err
+        assert err.rstrip().endswith("(%d bytes)" % os.path.getsize(
+            out + "-MinDepth2-in.fastq"))
+    want, got = _outputs(str(tmp_path), "one"), _outputs(str(tmp_path),
+                                                         "flags")
+    assert want and got == want and any(len(v) for v in got.values())
 
 
 def test_mesh_2_runs(tmp_path):

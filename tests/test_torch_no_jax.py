@@ -10,14 +10,18 @@ nucleating assembler on its three matchers (host, --kmer-size 0, --mesh
 randomly_sample, split_sequence, compare_spectrums, estimate_size,
 tnf_distance, bam_sort with SAM and BAM output, filter_and_sort_sam),
 then checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
-loaded. And no source file of the port names the JAX package in an
-import, lazy ones inside functions included."""
+loaded; so do two gloo ranks of FilterReads at --nprocs 2, in memory and
+with --streaming --distributed. And no source file of the port names the
+JAX package in an import, lazy ones inside functions included."""
 import os
 import re
 import signal
 import subprocess
 import sys
 
+import numpy as np
+
+from torch_ranks import run_ranks
 from torch_threads import ONE_THREAD
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -162,6 +166,37 @@ def test_port_never_imports_jax(tmp_path):
 
 def test_small_apps_never_import_jax(tmp_path):
     _run_clean(SMALL_APPS, tmp_path)
+
+
+RANK = r"""
+import sys
+from kmernator_tpu_torch.apps.filter_reads import run
+coord, rank, d, extra = sys.argv[1], sys.argv[2], sys.argv[3], sys.argv[4:]
+assert run(["--device", "cpu", "--min-read-length", "25", "--distributed",
+            coord, "--nprocs", "2", "--procid", rank] + extra
+           + ["--out", d + "/n", "31", d + "/in.fastq"]) == 0
+"""
+
+
+def test_nprocs_ranks_never_import_jax(tmp_path):
+    """Two gloo ranks of the port's FilterReads, in memory and with
+    --streaming --distributed: neither rank loads jax or the JAX
+    package."""
+    rng = np.random.default_rng(3)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = rng.integers(0, 4, 4000, dtype=np.uint8)
+    with open(tmp_path / "in.fastq", "wb") as f:
+        for i in range(400):
+            s = int(rng.integers(0, 4000 - 72))
+            f.write(b"@r%03d\n%s\n+\n%s\n"
+                    % (i, acgt[genome[s:s + 72]].tobytes(), b"H" * 72))
+    for extra in ([], ["--streaming", "--streaming-chunk-mb", "0.005",
+                       "--mesh-batch", "32"]):
+        outs = run_ranks(lambda coord, r: [
+            sys.executable, "-c", RANK + EPILOGUE, coord, str(r),
+            str(tmp_path)] + extra, 2)
+        assert all("JAX_MODULES []" in out for out, _ in outs), outs
+        assert os.path.getsize(tmp_path / "n-MinDepth2-in.fastq") > 0
 
 
 def test_no_source_imports_the_jax_package():
