@@ -46,8 +46,8 @@ started together) and drives the port's paths on the card:
      and at k=63 on `--streaming --mesh 1` (two- and three-lane keys),
      each byte-identical to the host engine at the same k;
  11. MeraculousCounter `--mesh 1` through its CLI entry point
-     (`kmernator_tpu_torch.apps.meraculous_counter.run`): phase 4's input at
-     k=21 (one-lane keys) and phase 5's at k=51 (two lanes), the mercount
+     (`kmernator_tpu_torch.apps.meraculous_counter.run`): phase 5's input at
+     k=21 (one-lane keys) and at k=51 (two lanes), the mercount
      and mergraph files byte-identical to the JAX package's MeraculousCounter
      host engine (`python -m kmernator_tpu.apps.meraculous_counter`, no
      mesh), 13 run-length launches a run, the device time of
@@ -55,8 +55,8 @@ started together) and drives the port's paths on the card:
  12. the nucleating assembler `--mesh 1` through its CLI entry point
      (`kmernator_tpu_torch.apps.nucleating_assembler.run`), whose read
      index is built and queried on the card (parallel/dist_match.py, no
-     kernel of csrc/): phase 4's input at k=31 with 50 seeds and phase 5's
-     at k=45 (two-lane keys) with 25, each seed the first 100 bp of a read
+     kernel of csrc/): phase 5's input at k=31 with 50 seeds and at k=45
+     (two-lane keys) with 25, each seed the first 100 bp of a read
      drawn with numpy, 5 iterations; the contigs byte-identical to the JAX
      package's host engine (`python -m
      kmernator_tpu.apps.nucleating_assembler`, its k-mer read index), the
@@ -66,13 +66,13 @@ started together) and drives the port's paths on the card:
  13. FilterReads `--streaming --distributed 127.0.0.1:<port> --nprocs 1`
      (the one-process distributed engine: a table that starts at the
      estimate / 6 and grows 4x on pressure, pass 2 looked up on the card):
-     phase 4's input at k=31 and phase 5's at k=63 (two-lane keys), each
-     byte-identical to that input's host-engine outputs from phase 4 or
+     phase 5's input at k=31 and at k=63 (two-lane keys), each
+     byte-identical to that input's host-engine outputs from phase 5 or
      10, the table grown at least once with no singleton purged, one
      run-length launch a drain; the capacities, drains, pass 1 and pass 2
      wall time, the lookups' device time (CUDA events), peak device memory,
      the port's host seconds by step and reads/s beside the host engine
-     and `--streaming --mesh 1`.
+     and the `--mesh 1` run of phase 5 or 10.
  14. TnfDistance through its CLI entry point
      (`kmernator_tpu_torch.apps.tnf_distance.run`) on 4,096 contigs of
      2,000-10,000 bp from 16 seeded genomes of GC 30-70%: at --device cuda
@@ -102,15 +102,15 @@ started together) and drives the port's paths on the card:
  17. `--mesh N` on one card (every shard on it; parallel/mesh.py's owner
      hash, bucket scatter and exchange): FilterReads in-memory `--mesh 2`
      and `--mesh 4` on phase 5's input and `--mesh 2` at k=63,
-     `--streaming --mesh 2` on phase 4's, and the purge cell at `--mesh
-     2`, each byte-identical to the host-engine outputs of phases 4, 5, 9
+     `--streaming --mesh 2` on phase 5's, and the purge cell at `--mesh
+     2`, each byte-identical to the host-engine outputs of phases 5, 9
      and 10 (the same "Removed N") with no singleton purged; `--streaming
      --mesh 4 --streaming-parts 50000` on phase 5's input, which purges
      singletons under capacity pressure,
      byte-identical to the JAX app at `--mesh 4 --jax-platform cpu` on
      four forced CPU devices (a separate program) with the same count
-     purged; MeraculousCounter `--mesh 2` at k=21 on phase 4's input and
-     `--mesh 4` at k=51 on phase 5's against phase 11's host outputs (13
+     purged; MeraculousCounter `--mesh 2` at k=21 and `--mesh 4` at k=51
+     on phase 5's input against phase 11's host outputs (13
      run-length launches a shard); the assembler `--mesh 2` at k=45 with
      phase 12's seeds against its host output. Each run prints its wall
      time, the device time of its shard exchange and of its shards'
@@ -121,8 +121,8 @@ started together) and drives the port's paths on the card:
      host: parallel/multihost.py `all_to_all_planes`). Each rank is a
      child of this script (`--rank-child`, with phase 17's CUDA-event
      instruments) under a time limit that, with any rank's failure, ends
-     both and fails the script. `--streaming --distributed` on phase 4's
-     input and the in-memory `--nprocs 2` on phase 5's (with
+     both and fails the script. `--streaming --distributed` and the
+     in-memory `--nprocs 2` on phase 5's input (with
      `--gathered-logs 1`: rank 0 prints both ranks' lines, rank 1 none)
      against their host-engine outputs, the purge cell against phase 9's
      (the same "Removed N"), and `--streaming --distributed
@@ -133,6 +133,29 @@ started together) and drives the port's paths on the card:
      work, D2H copy, gloo and H2D copy, drains and run-length launches by
      lane count, peak device memory; both ranks' launches join the
      kernels line.
+ 19. the device library and the entry points (`phase_library`), each step
+     driven on the card with the run-length counts zeroed just before it:
+     (a) `kmernator_tpu_torch.entry.entry()`'s step bit-equal to
+     `entry(device="cpu")`; (b) `spectrum_step` on phase 7's 131,072
+     reads x 100 bp with seeded phred 2-40 log2-probabilities (0.5% of the
+     bases at -1e30): its counts against a np.unique oracle under its own
+     good mask, that mask against the CPU's outside `window_good_bound` of
+     the threshold, `compact_spectrum` of its sorted state against
+     np.unique and `lookup_join` of all 9,175,040 windows against an
+     np.searchsorted oracle, its device time beside phase 7's count_batch;
+     (c) `pipeline.StreamingSpectrum` through `build_streaming` on phase
+     4's FASTQ (`FastqBatchStream(pack2=True)`) at 2^26 rows, bit-equal to
+     a `MeshStreamingSpectrum(make_mesh(1))` fed the same batches and good
+     masks, its drains, launches, device time, wall, windows/s and peak
+     memory; and a purge case on phase 5's input at 2^20 rows bit-equal
+     to the CPU run of the same stream (the same singletons purged); (d)
+     `distributed_spectrum_fn`, `distributed_count_fn` and
+     `distributed_extension_fn` at D = 1, 2 and 4 on (b)'s batch: counts
+     bit-equal to `spectrum_step`'s and D = 1's, no overflow, equal shard
+     totals and extension tables, device times; (e)
+     `entry.dryrun_multichip(n)` for n = 1, 2 and 4, with its asserts and
+     FilterReads byte checks, and its wall. Its launches join the kernels
+     line.
 Phase 3 also holds the kernel's two- and three-lane instantiations
 (k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
 and times them beside the one-lane kernel.
@@ -179,6 +202,9 @@ PRESSURE_ROWS = 50_000
 # script; a job that passes its time limit fails the phase
 NPROCS, RANK_TIMEOUT = 2, 600
 K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
+# phase 19: StreamingSpectrum's rows on phase 4's input (past its distinct
+# keys: no purge) and in the purge case on phase 5's (under them)
+STREAM_ROWS, PURGE_ROWS = 1 << 26, 1 << 20
 FP32_FLOPS = 67e12                   # H100 SXM data sheet, no tensor cores
 TNF_CONTIGS, TNF_GENOMES, TNF_GENOME_BP = 4096, 16, 1_600_000
 TNF_BOUND = 4.0e-3      # ~ sqrt(2 * 136 * 2^-24): float32 sums near g = 1
@@ -695,10 +721,10 @@ def phase_distributed(name: str, fq: str, n_reads: int, rl, k: int,
                       host_from, mesh1_run):
     """FilterReads `--streaming --distributed 127.0.0.1:<port> --nprocs 1`
     on the card against the host engine's outputs of an earlier phase
-    (host_from), beside that input's `--streaming --mesh 1` run
-    (mesh1_run): byte-identical, the table on the card and grown at least
-    once, no singleton purged, one run-length launch at the keys' lane
-    count a drain, and pass 2's lookups on the card."""
+    (host_from), beside that input's `--mesh 1` run (mesh1_run):
+    byte-identical, the table on the card and grown at least once, no
+    singleton purged, one run-length launch at the keys' lane count a
+    drain, and pass 2's lookups on the card."""
     import socket
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -736,7 +762,7 @@ def phase_distributed(name: str, fq: str, n_reads: int, rl, k: int,
         % (name, ", ".join("%s %.2f" % x
                            for x in r["host_steps_s"].items()),
            r["port_s"] - sum(r["host_steps_s"].values())))
-    log("%s: %.0f reads/s; host engine %.0f reads/s; --streaming --mesh 1 "
+    log("%s: %.0f reads/s; host engine %.0f reads/s; --mesh 1 "
         "(%s, this run) %.0f reads/s"
         % (name, n_reads / r["port_s"], n_reads / r["host_s"],
            mesh1_run["name"], mesh1_run["reads"] / mesh1_run["port_s"]))
@@ -2054,15 +2080,15 @@ def phase_pressure(rl, fq32: str, n_reads: int):
     return r
 
 
-def phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge, n_purge,
+def phase_mesh_n(rl, ms, hi, fq32, n32, fq_purge, n_purge,
                  purge_args, in_memory, runs, wide, purge_run, mer, asm):
     """Phase 17: --mesh N on one card, every shard on it. FilterReads
-    in-memory at --mesh 2 and 4 and at k=63, --streaming --mesh 2 on phase
-    4's input and the purge cell at --mesh 2, each byte-identical to the
-    host-engine outputs of phases 4, 5, 9 and 10 with no singleton
+    in-memory at --mesh 2 and 4 and at k=63, --streaming --mesh 2 (all on
+    phase 5's input) and the purge cell at --mesh 2, each byte-identical to the
+    host-engine outputs of phases 5, 9 and 10 with no singleton
     purged; the capacity-pressure run against the JAX app at --mesh 4;
-    MeraculousCounter at --mesh 2 (k=21, phase 4's input) and --mesh 4
-    (k=51, phase 5's) against phase 11's host outputs; the assembler at
+    MeraculousCounter at --mesh 2 (k=21) and --mesh 4 (k=51) against
+    phase 11's host outputs, both on phase 5's input; the assembler at
     --mesh 2 (k=45) against phase 12's. Prints each run's wall time, the
     device time of its shard exchange and of its shards' drains (CUDA
     events), run-length launches, overflow retries and peak memory."""
@@ -2072,8 +2098,8 @@ def phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge, n_purge,
                     host_from=runs[1]),
           phase_app("mesh2-k63", fq32, n32, rl, in_memory, k=63, mesh=2,
                     host_from=wide[1]),
-          phase_app("mesh2-streaming", fq256, n256, rl, {}, mesh=2,
-                    port_args=["--streaming"], host_from=runs[0]),
+          phase_app("mesh2-streaming", fq32, n32, rl, in_memory, mesh=2,
+                    port_args=["--streaming"], host_from=runs[1]),
           phase_app("mesh2-purge", fq_purge, n_purge, rl, in_memory,
                     mesh=2, args=purge_args, host_from=purge_run)]
     for r in fr:
@@ -2081,7 +2107,7 @@ def phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge, n_purge,
             raise SystemExit("%s: %d singletons purged" % (r["name"],
                                                           r["purged"]))
     fr.append(phase_pressure(rl, fq32, n32))
-    mr = [phase_meraculous("mesh2-meraculous-k21", fq256, n256, rl, 21,
+    mr = [phase_meraculous("mesh2-meraculous-k21", fq32, n32, rl, 21,
                            mesh=2, host_from=mer[0]),
           phase_meraculous("mesh4-meraculous-k51", fq32, n32, rl, 51,
                            mesh=4, host_from=mer[1])]
@@ -2370,6 +2396,286 @@ def phase_nprocs(cells, smi: str):
     return results
 
 
+def drive(rl, fn):
+    """fn() with the run-length counts set to 0 just before it: (its
+    result, its launches by lane count, read after a synchronize)."""
+    rl.launches = 0
+    rl.launches_by_lanes.update({1: 0, 2: 0, 3: 0})
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(rl.launches_by_lanes)
+
+
+def keys_u64(words: np.ndarray) -> np.ndarray:
+    """[N, 2] words (k 17-32) -> [N] uint64 keys in the same order."""
+    w = words.astype(np.uint64)
+    return (w[:, 0] << np.uint64(32)) | w[:, 1]
+
+
+def phase_library(rl, smi: str, fq256: str, n256: int, fq32: str,
+                  count_ms: float, dev: str = "cuda"):
+    """Phase 19: the device library and the entry points on the card, each
+    step its own drive (run-length counts zeroed just before it):
+    a. entry()'s step bit-equal to entry(device="cpu");
+    b. spectrum_step on phase 7's 131,072 reads x 100 bp with seeded phred
+       2-40 log2-probabilities (0.5% of bases at -1e30): counts against a
+       np.unique oracle under the port's own good mask, that mask against
+       the CPU's outside window_good's stated bound of the threshold,
+       compact_spectrum of the sorted state against np.unique, lookup_join
+       of every window against an np.searchsorted oracle;
+    c. StreamingSpectrum through build_streaming on phase 4's FASTQ
+       (FastqBatchStream(pack2=True)) at 2^26 rows, against a
+       MeshStreamingSpectrum(make_mesh(1)) fed the same batches and good
+       masks; then a purge case on phase 5's input at 2^20 rows against
+       the CPU run of the same stream;
+    d. distributed_spectrum_fn, distributed_count_fn and
+       distributed_extension_fn at D = 1, 2 and 4 on (b)'s batch;
+    e. dryrun_multichip(n) for n = 1, 2 and 4.
+    Every step runs on `dev`, the card (the CPU only to rehearse the phase
+    at a small size). Returns the launches by lane count and the
+    figures."""
+    from kmernator_tpu_torch import entry as E
+    from kmernator_tpu_torch.io.stream import FastqBatchStream
+    from kmernator_tpu_torch.ops.kmer import encode_lane
+    from kmernator_tpu_torch.parallel import device_spectrum as ds
+    from kmernator_tpu_torch.parallel import pipeline as pl
+    from kmernator_tpu_torch.parallel.mesh import (
+        distributed_count_fn, distributed_extension_fn,
+        distributed_spectrum_fn, make_mesh)
+    from kmernator_tpu_torch.parallel.mesh_stream import (
+        MeshStreamingSpectrum)
+    lmw = float(np.log2(0.10))
+    by_lanes = {1: 0, 2: 0, 3: 0}
+    fig = {}
+
+    def tally(lanes):
+        for L, n in lanes.items():
+            by_lanes[L] += n
+        return sum(lanes.values())
+
+    # a. the entry point
+    fn, args = E.entry(dev)
+    got, lanes = drive(rl, lambda: fn(*args))
+    fn_c, args_c = E.entry("cpu")
+    if not torch.equal(got.cpu(), fn_c(*args_c)):
+        raise SystemExit("entry(): the card's counts differ from the CPU's")
+    fig["entry_launches"] = tally(lanes)
+    log("phase 19a entry(): spectrum_step counts %s on the card, bit-equal "
+        "to device='cpu'; run_length launches %d"
+        % (tuple(got.shape), fig["entry_launches"]))
+
+    # b. spectrum_step and the library at the count path's full size
+    codes, lengths = count_codes()
+    rng = np.random.default_rng(19)
+    q = rng.integers(2, 41, codes.shape)
+    logp = np.log2(1.0 - 10.0 ** (-q / 10.0)).astype(np.float32)
+    logp[rng.random(codes.shape) < 0.005] = np.float32(-1e30)
+    host = [torch.from_numpy(a) for a in (codes, logp, lengths)]
+    dc, dl, dn = (a.to(dev) for a in host)
+
+    def library():
+        counts, canon, good = ds.spectrum_step(dc, dl, dn, K)
+        state = ds.count_and_score(canon, good, K, 2)[1]
+        table = ds.compact_spectrum(*state)
+        del state
+        looked = ds.lookup_join(table[0], table[1], canon.reshape(-1, 2))
+        return counts, canon, good, table, looked
+
+    (counts, canon, good, table, looked), lanes = drive(rl, library)
+    fig["library_launches"] = tally(lanes)
+    step_ms = cuda_ms(lambda: ds.spectrum_step(dc, dl, dn, K), 3)
+    parts_ms = {
+        "extract_canonical": cuda_ms(lambda: ds.extract_canonical(dc, dn, K),
+                                     3),
+        "window_good": cuda_ms(lambda: ds.window_good(dl, dn, K, lmw), 3),
+        "count_and_score": cuda_ms(
+            lambda: ds.count_and_score(canon, good, K, 2), 3)}
+    words = canon.reshape(-1, 2).cpu().numpy()
+    if not np.array_equal(words, ds.extract_canonical(
+            host[0], host[2], K)[0].reshape(-1, 2).numpy()):
+        raise SystemExit("spectrum_step: canonical keys differ from the "
+                         "CPU's")
+    keys = keys_u64(words)
+    g = good.reshape(-1).cpu().numpy()
+    u, c = np.unique(keys[g], return_counts=True)
+    at = np.minimum(np.searchsorted(u, keys), len(u) - 1)
+    seen = np.where(u[at] == keys, c[at], 0).astype(np.int32)
+    if not np.array_equal(counts.reshape(-1).cpu().numpy(),
+                          np.where(seen >= 2, seen, 0)):
+        raise SystemExit("spectrum_step: counts disagree with np.unique")
+    w_cpu, g_cpu = ds.window_good(host[1], host[2], K, lmw)
+    band = ((w_cpu.double() - lmw).abs()
+            <= ds.window_good_bound(host[1])[:, None]).reshape(-1).numpy()
+    differ = g != g_cpu.reshape(-1).numpy()
+    if (differ & ~band).any():
+        raise SystemExit("window_good: the card's good mask differs from "
+                         "the CPU's outside the stated bound")
+    tk, tc, tn = (x.cpu().numpy() for x in table)
+    n = int(tn)
+    if not (n == len(u) and np.array_equal(keys_u64(tk[:n]), u)
+            and np.array_equal(tc[:n], c) and (tc[n:] == 0).all()):
+        raise SystemExit("compact_spectrum disagrees with np.unique")
+    if not np.array_equal(looked.cpu().numpy(), seen):
+        raise SystemExit("lookup_join disagrees with np.searchsorted")
+    fig.update(windows=int(keys.size), good=int(g.sum()), distinct=n,
+               band=int(band.sum()), mask_differs=int(differ.sum()),
+               step_ms=step_ms, step_parts_ms=parts_ms)
+    log("phase 19b spectrum_step: %d windows (%d good, %d in the %s band of "
+        "the threshold, %d differ from the CPU's mask, all in it), %d "
+        "distinct good keys: counts, compact_spectrum and lookup_join of "
+        "every window bit-equal to np.unique / np.searchsorted; "
+        "spectrum_step %.4f ms device time (CUDA events; its parts alone: "
+        "%s) beside phase 7's count_batch %.4f ms; run_length launches %d "
+        "[%s]" % (keys.size, g.sum(), band.sum(), "window_good_bound",
+                  differ.sum(), n, step_ms, ", ".join(
+                      "%s %.4f ms" % kv for kv in parts_ms.items()),
+                  count_ms, fig["library_launches"], smi))
+    del table, looked, words, keys, seen, w_cpu, g_cpu
+
+    # c. the streaming build on phase 4's input, then a purge case
+    sink, stash = {}, {"codes": [], "good": []}
+    plain = event_timed([(pl, "count_batch"), (pl, "merge_tables")], sink)
+    plain[(pl, "extract_canonical_cols")] = pl.extract_canonical_cols
+    plain[(pl, "window_good")] = pl.window_good
+
+    def keep_codes(codes, lengths, k):
+        stash["codes"].append((codes, lengths))
+        return plain[(pl, "extract_canonical_cols")](codes, lengths, k)
+
+    def keep_good(*a):
+        out = plain[(pl, "window_good")](*a)
+        stash["good"].append(out[1])
+        return out
+
+    pl.extract_canonical_cols, pl.window_good = keep_codes, keep_good
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        (sk, sc), lanes = drive(rl, lambda: pl.build_streaming(
+            FastqBatchStream([fq256], pack2=True), K, STREAM_ROWS,
+            min_depth=2, device=dev))
+    finally:
+        restore_steps(plain)
+    wall = time.perf_counter() - t0
+    fig["stream_launches"] = tally(lanes)
+    n_batches, n_drains = len(sink["count_batch"]), len(sink["merge_tables"])
+    if fig["stream_launches"] != n_batches + n_drains:
+        raise SystemExit("StreamingSpectrum launched the run-length kernel "
+                         "%d times for %d batches and %d drains"
+                         % (fig["stream_launches"], n_batches, n_drains))
+    dev_ms = events_ms(sink, ("count_batch", "merge_tables"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    windows = sum(int(cd.shape[0]) * (cd.shape[1] - K + 1)
+                  for cd, _ in stash["codes"])
+    oracle = MeshStreamingSpectrum(make_mesh(1, dev), K,
+                                   capacity=STREAM_ROWS)
+    for (cd, ln), gd in zip(stash["codes"], stash["good"]):
+        oracle.add_batch(cd.cpu().numpy(), gd.cpu().numpy(),
+                         ln.cpu().numpy())
+    del stash
+    ok, oc = oracle.finalize(2)
+    if oracle.purged_singletons or not (np.array_equal(sk, ok)
+                                        and np.array_equal(sc, oc)):
+        raise SystemExit("StreamingSpectrum disagrees with "
+                         "MeshStreamingSpectrum(make_mesh(1))")
+    del oracle, ok, oc
+    fig.update(stream_reads=n256, stream_keys=int(len(sk)),
+               stream_batches=n_batches, stream_drains=n_drains,
+               stream_device_ms=dev_ms, stream_wall_s=wall,
+               stream_windows=windows, stream_peak_gib=peak)
+    log("phase 19c StreamingSpectrum: %d reads, %d windows in %d batches, "
+        "%d drains, %d keys at count >= 2, bit-equal to "
+        "MeshStreamingSpectrum(make_mesh(1)); run_length launches %d "
+        "(count_batch %d, merge_tables %d); device %.1f ms (CUDA events), "
+        "wall %.2f s, %.4g windows/s; peak device memory %.2f GiB"
+        % (n256, windows, n_batches, n_drains, len(sk),
+           fig["stream_launches"], n_batches, n_drains, dev_ms, wall,
+           windows / wall, peak))
+    del sk, sc
+
+    def purge_run(device):
+        sp = pl.StreamingSpectrum(K, PURGE_ROWS, device=device)
+        stream = FastqBatchStream([fq32], pack2=True)
+        for cd, qual, ln in stream:
+            sp.add_batch(cd, qual, ln, qual_table=stream.device_table)
+        return sp.finalize(2), sp.purged_singletons, sp.drains
+
+    ((pk, pc), purged, drains), lanes = drive(rl, lambda: purge_run(dev))
+    fig["purge_launches"] = tally(lanes)
+    (ck, cc), c_purged, _ = purge_run("cpu")
+    if not (purged == c_purged > 0 and np.array_equal(pk, ck)
+            and np.array_equal(pc, cc)):
+        raise SystemExit("StreamingSpectrum purge case: the card (%d "
+                         "purged) disagrees with the CPU (%d purged)"
+                         % (purged, c_purged))
+    fig.update(purged=purged, purge_drains=drains, purge_keys=int(len(pk)))
+    log("phase 19c purge case (phase 5's input, 2^20 rows): %d singletons "
+        "purged in %d drains, %d keys, bit-equal to the CPU run; "
+        "run_length launches %d" % (purged, drains, len(pk),
+                                    fig["purge_launches"]))
+
+    # d. the shard_map steps at D = 1, 2 and 4 on (b)'s batch
+    ext_ok = torch.from_numpy(q >= 20).to(dev)
+    ref = None
+    for D in (1, 2, 4):
+        mesh = make_mesh(D, dev)
+
+        def steps():
+            sp = distributed_spectrum_fn(mesh, K)(dc, dl, dn)
+            cn = distributed_count_fn(mesh, K)(dc, good, dn)
+            ex = distributed_extension_fn(mesh, K)(dc, good, ext_ok, dn)
+            return sp, cn, ex
+
+        (sp, cn, ex), lanes = drive(rl, steps)
+        fig["dist_launches_D%d" % D] = tally(lanes)
+        ms_ = [cuda_ms(lambda: distributed_spectrum_fn(mesh, K)(dc, dl, dn),
+                       1),
+               cuda_ms(lambda: distributed_count_fn(mesh, K)(dc, good, dn),
+                       1),
+               cuda_ms(lambda: distributed_extension_fn(mesh, K)(
+                   dc, good, ext_ok, dn), 1)]
+        # the extension rows of every shard, in key order
+        keep = ex[1] > 0
+        ext_keys = encode_lane([ex[0][keep, 0], ex[0][keep, 1]])
+        order = torch.argsort(ext_keys)
+        tab = (ext_keys[order].cpu(), ex[1][keep][order].cpu(),
+               ex[2][keep][order].cpu())
+        over = int(sp[3].sum()) + int(cn[1].sum()) + int(ex[3].sum())
+        total = int(sp[2].sum())
+        mine = (sp[0].cpu(), cn[0].cpu(), total, tab)
+        if over or not (torch.equal(mine[0], counts.cpu())
+                        and torch.equal(mine[1], counts.cpu())):
+            raise SystemExit("distributed_*_fn at D = %d: overflow %d or "
+                             "counts differ from spectrum_step's" % (D, over))
+        if ref is not None and not (total == ref[2] and all(
+                torch.equal(a, b) for a, b in zip(tab, ref[3]))):
+            raise SystemExit("distributed_*_fn at D = %d differ from D = 1"
+                             % D)
+        ref = ref or mine
+        fig["dist_ms_D%d" % D] = ms_
+        log("phase 19d D = %d: distributed_spectrum_fn %.2f ms, "
+            "distributed_count_fn %.2f ms, distributed_extension_fn %.2f ms "
+            "of device time (CUDA events); counts bit-equal to "
+            "spectrum_step's and D = 1's, shard total %d, %d extension "
+            "rows equal, overflow 0; run_length launches %d"
+            % (D, ms_[0], ms_[1], ms_[2], total, len(tab[0]),
+               fig["dist_launches_D%d" % D]))
+        del sp, cn, ex, mine
+    del dc, dl, dn, good, ext_ok, counts, canon
+
+    # e. the dryrun at 1, 2 and 4 shards
+    for n in (1, 2, 4):
+        t0 = time.perf_counter()
+        _, lanes = drive(rl, lambda: E.dryrun_multichip(n, dev))
+        fig["dryrun_s_%d" % n] = time.perf_counter() - t0
+        fig["dryrun_launches_%d" % n] = tally(lanes)
+        log("phase 19e dryrun_multichip(%d): every assert and byte check "
+            "passed in %.2f s wall; run_length launches %d"
+            % (n, fig["dryrun_s_%d" % n], fig["dryrun_launches_%d" % n]))
+    fig["launches"] = sum(by_lanes.values())
+    return by_lanes, fig
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -2412,7 +2718,7 @@ def main() -> int:
     t0 = time.perf_counter()
     fq = os.path.join(WORK, "meta256.fastq")
     n = generate(fq, "6")
-    runs = [phase_app("streaming", fq, n, rl, {}, keep_host=True)]
+    runs = [phase_app("streaming", fq, n, rl, {})]
     fq256, n256 = fq, n
     log("phase 4 streaming slice ok [%.1f s]" % (time.perf_counter() - t0))
 
@@ -2459,7 +2765,7 @@ def main() -> int:
     log("phase 10 k > 32 ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    mer = [phase_meraculous("meraculous-k21", fq256, n256, rl, 21,
+    mer = [phase_meraculous("meraculous-k21", fq32, n32, rl, 21,
                             keep_host=True),
            phase_meraculous("meraculous-k51", fq32, n32, rl, 51,
                             keep_host=True)]
@@ -2467,7 +2773,7 @@ def main() -> int:
         % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    asm = [phase_assembler("asm-k31", fq256, n256, rl, ms, hi, 31, 50,
+    asm = [phase_assembler("asm-k31", fq32, n32, rl, ms, hi, 31, 50,
                            ASM_ITERATIONS),
            phase_assembler("asm-k45", fq32, n32, rl, ms, hi, 45, 25,
                            ASM_ITERATIONS, keep_host=True)]
@@ -2475,8 +2781,8 @@ def main() -> int:
         % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    dist = [phase_distributed("dist-streaming", fq256, n256, rl, K,
-                              runs[0], runs[0]),
+    dist = [phase_distributed("dist-streaming", fq32, n32, rl, K,
+                              runs[1], runs[1]),
             phase_distributed("dist-k63", fq32, n32, rl, 63, wide[1],
                               wide[1])]
     log("phase 13 --streaming --distributed --nprocs 1 ok [%.1f s]"
@@ -2502,28 +2808,34 @@ def main() -> int:
     log("phase 16 small apps ok [%.1f s]" % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
-    mesh_runs = phase_mesh_n(rl, ms, hi, fq256, n256, fq32, n32, fq_purge,
-                             n_purge, purge_args, in_memory, runs, wide,
-                             purge_run, mer, asm)
+    mesh_runs = phase_mesh_n(rl, ms, hi, fq32, n32, fq_purge, n_purge,
+                             purge_args, in_memory, runs, wide, purge_run,
+                             mer, asm)
     log("phase 17 --mesh N on one card ok [%.1f s]"
         % (time.perf_counter() - t0))
 
     t0 = time.perf_counter()
     nprocs_runs = phase_nprocs([
-        ("nprocs2-streaming", fq256, n256, K, ["--streaming"], runs[0]),
+        ("nprocs2-streaming", fq32, n32, K, ["--streaming"], runs[1]),
         ("nprocs2-in-memory", fq32, n32, K,
          ["--gathered-logs", "1", "--verbose", "1"], runs[1]),
         ("nprocs2-purge", fq_purge, n_purge, K, purge_args, purge_run),
         ("nprocs2-pressure", fq32, n32, K,
          ["--streaming", "--streaming-parts", str(PRESSURE_ROWS)], None)],
         smi)
+    log("phase 18 --nprocs 2 on one card ok [%.1f s]"
+        % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    library_lanes, library = phase_library(rl, smi, fq256, n256, fq32,
+                                           count["torch_ms"])
     for r in runs[:2] + [wide[1], purge_run] + mer:
         for path in outputs(r["host_out"]).values():
             os.remove(path)
     for path in [fq256, fq32, fq_purge, asm[1]["seeds"]] + list(
             outputs(asm[1]["host_out"]).values()):
         os.remove(path)
-    log("phase 18 --nprocs 2 on one card ok [%.1f s]"
+    log("phase 19 device library and entry points ok [%.1f s]"
         % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer + dist
     launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
@@ -2531,7 +2843,9 @@ def main() -> int:
     launches += sum(r["launches"] for r in mesh_runs["runs"])
     runs += nprocs_runs
     launches += sum(r["launches"] for r in nprocs_runs)
-    by_lanes = {L: sum(r["by_lanes"][L] for r in runs) for L in (1, 2, 3)}
+    launches += library["launches"]
+    by_lanes = {L: sum(r["by_lanes"][L] for r in runs) + library_lanes[L]
+                for L in (1, 2, 3)}
     by_lanes[1] += count["run_length"]
     if min(by_lanes.values()) <= 0:
         raise SystemExit("the main path did not launch the run-length "
@@ -2558,6 +2872,8 @@ def main() -> int:
         for r in asm + [mesh_runs["asm"]]}))
     log("TnfDistance, BamSort and small-app runs (no kernel launched): %s"
         % json.dumps({"tnf": tnf_run, "bam": bam_run, "small": small}))
+    log("device library and entry points (phase 19): %s"
+        % json.dumps(library))
     log("chip_smoke: every phase passed in %.1f s"
         % (time.perf_counter() - t_start))
     log(smi)

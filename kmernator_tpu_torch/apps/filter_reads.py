@@ -28,10 +28,10 @@ source in its package imports and in these places:
   exchange's planes cross the host (parallel/multihost.py
   `all_to_all_planes`); the JAX app runs jax.distributed and XLA
   collectives. Ranks may share one card.
-- `run_streaming_distributed` and `window_count_lookup_mesh` take the
-  port's default mesh batch (2,048 reads, as the JAX `auto_mesh_batch`
-  off a TPU) and their collectives from the port's
-  `parallel/multihost.py`.
+- `run_streaming_distributed` and the two `--mesh` engines take their
+  device batch from the port's `auto_mesh_batch` (KMTPU_MESH_BATCH, else
+  2,048 reads: the JAX function's answer off a TPU) and their
+  collectives from the port's `parallel/multihost.py`.
 - `run` takes `--device cuda|cpu` (default cuda; cuda without a visible
   GPU raises) in place of `--jax-platform`. `--distributed X` at one
   process runs with --streaming (or an input that streams on its own) in
@@ -61,7 +61,7 @@ from kmernator_tpu_torch.ops.trim import (ReadTrims, score_and_trim,
                                           pick_all_passing)
 from kmernator_tpu_torch.ops.weights import window_weights, good_kmer_mask
 from kmernator_tpu_torch.parallel.device_spectrum import (
-    DEFAULT_BATCH_READS, pack_readset, padded_to_ragged, ragged_to_padded)
+    auto_mesh_batch, pack_readset, padded_to_ragged, ragged_to_padded)
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
@@ -269,7 +269,7 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
     if capacity <= 0:
         capacity = max(int(np.ceil(n_good / D * 1.25)), 4096)
     if batch_reads <= 0:
-        batch_reads = DEFAULT_BATCH_READS
+        batch_reads = auto_mesh_batch(L, k)
         Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
                     % (batch_reads, L))
     batch_reads = max((batch_reads // S) * S, S)
@@ -764,8 +764,6 @@ def _streaming_mesh_count(chunks, input_files, k, min_quality, output_base,
         # the JAX package's per-device clamp: the estimate, at most 64M rows
         est = estimate_raw_kmers(input_files, k)
         capacity = min(max(int(np.ceil(est / mesh_devices)), 4096), 64 << 20)
-    if batch_reads <= 0:
-        batch_reads = DEFAULT_BATCH_READS
     sp = MeshStreamingSpectrum(make_mesh(mesh_devices, device), k,
                                capacity=capacity)
     raw = good_total = n_reads = 0
@@ -774,6 +772,10 @@ def _streaming_mesh_count(chunks, input_files, k, min_quality, output_base,
         need = max(rs.max_length(), k)
         if need > L:
             L = -(-need // 32) * 32  # bucketed pad length
+        if batch_reads <= 0:
+            batch_reads = auto_mesh_batch(L, k)
+            Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
+                        % (batch_reads, L))
         codes, good2d, lengths, weights2d, r, g = _chunk_padded(
             rs, k, L, min_quality, output_base, min_kmer_quality,
             subtract_keys, track_w)
@@ -1806,7 +1808,7 @@ def run_streaming_distributed(opts, kopts, sopts, ropts, aopts, fopts,
                 break
             L_glob = max(L_glob, int(f[:, 1].max()))
             if batch_reads <= 0:
-                batch_reads = DEFAULT_BATCH_READS
+                batch_reads = auto_mesh_batch(L_glob, k)
                 Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
                             % (batch_reads, L_glob))
             bc, bg, bl, bw, m = _slice_pad_batch(cur, off, batch_reads,

@@ -1,9 +1,10 @@
 """The k-mer -> read-id matcher of the assembler's `--mesh` path, on the
 shards of a mesh on one torch device.
 
-Twin of kmernator_tpu/parallel/dist_match.py: `build_index` (its
-`build_index_fn`), `match` and `match_shards` (its `match_fn`),
-`MeshReadIndex` and `mesh_match_pools` (a copy). The build extracts
+Twin of kmernator_tpu/parallel/dist_match.py: `build_index_fn` and
+`match_fn` (the JAX builders' call signatures, over `build_index` and
+`match_shards`, which are their steps), `match`, `MeshReadIndex` and
+`mesh_match_pools` (a copy). The build extracts
 canonical windows from D contiguous blocks of the reads, routes each
 (key, read id) row to the shard that owns the key (owner hash, bucket
 scatter with an overflow count, the exchange of parallel/mesh.py) and
@@ -39,8 +40,9 @@ import torch
 
 from kmernator_tpu_torch.io.reads import BASE_CODE
 from kmernator_tpu_torch.ops.kmer import (SENTINEL_LANE, SENTINEL_WORD,
-                                          check_k, encode_lanes,
-                                          extract_kmers_flat, nwords)
+                                          check_k, decode_lanes,
+                                          encode_lanes, extract_kmers_flat,
+                                          nwords)
 from kmernator_tpu_torch.ops.weights import good_kmer_mask, window_weights
 from kmernator_tpu_torch.parallel.device_spectrum import (
     extract_canonical_cols, pack_readset, ragged_to_padded, search_lanes,
@@ -54,7 +56,8 @@ Shard = Tuple[List[torch.Tensor], torch.Tensor]
 
 def build_index(mesh: Mesh, k: int, codes: torch.Tensor,
                 good2d: torch.Tensor, lengths: torch.Tensor,
-                capacity_factor: float = 2.0
+                capacity_factor: float = 2.0,
+                read_global: Optional[torch.Tensor] = None
                 ) -> Tuple[Optional[List[Shard]], int]:
     """The sorted read index of every shard (the JAX `build_index_fn`
     step). codes [B, L] (0..3), good2d [B, NW] bool (the exact host mask),
@@ -65,7 +68,9 @@ def build_index(mesh: Mesh, k: int, codes: torch.Tensor,
     `plane_width`). Returns (shards, 0), shard d being (L [n_d]
     int64 key lanes sorted lexicographically, rid [n_d] int32) with ids
     ascending within a key's run; or (None, the rows past C) when a bucket
-    overflows, for the caller to retry at a larger capacity_factor."""
+    overflows, for the caller to retry at a larger capacity_factor. A
+    row's id is its read's row in the batch, or read_global [B] int32 (the
+    JAX `read_global`; ids ascend within a run when it ascends)."""
     check_k(k)
     D = mesh.size
     B = codes.shape[0]
@@ -86,8 +91,10 @@ def build_index(mesh: Mesh, k: int, codes: torch.Tensor,
         return None, int((loads - C).clamp_(min=0).sum())
     win_slot, _ = bucket_slots(owner, g, D, width)
     del owner, g
-    rid = torch.div(torch.arange(B * NW, device=codes.device), NW,
-                    rounding_mode="floor").reshape(D, N)
+    row = torch.div(torch.arange(B * NW, device=codes.device), NW,
+                    rounding_mode="floor")
+    rid = (row if read_global is None else
+           read_global.to(torch.int64)[row]).reshape(D, N)
     recv_rid = exchange(scatter_plane(rid, win_slot, D, width, -1))
     recv = [exchange(scatter_plane(lane, win_slot, D, width, SENTINEL_LANE))
             for lane in encode_lanes(words)]
@@ -149,6 +156,49 @@ def match_shards(shards: List[Shard], query_cols: List[torch.Tensor],
         out[sel] = match(index_lanes, index_rid, [lane[sel] for lane in lanes],
                          max_ids, min_depth)
     return out
+
+
+def build_index_fn(mesh: Mesh, k: int, capacity_factor: float = 2.0):
+    """The JAX `build_index_fn` call: returns fn(codes [B, L], good [B, NW]
+    bool, lengths [B], read_global [B] int32), tensors on mesh.device, B a
+    multiple of D -> (index_keys, index_rid, overflow). index_keys is a
+    list of D tensors [n_d, W] of int64 words, shard d's keys in key
+    order; index_rid the D [n_d] int32 read ids beside them, ascending
+    within a run where read_global ascends (the JAX sort orders a run by
+    id whatever read_global is); overflow the rows past C over all
+    sources. The layout
+    keeps the port's difference (module docstring): a shard holds the rows
+    it received, where the JAX shard is D * C rows padded with the
+    sentinel and id -1, and the shards come as a list, not end to end. On
+    overflow the port builds no index (both lists are None); the JAX one
+    keeps the rows that fit, chosen by its sort's tie order."""
+    def fn(codes, good, lengths, read_global):
+        shards, overflow = build_index(mesh, k, codes, good, lengths,
+                                       capacity_factor, read_global)
+        if shards is None:
+            return None, None, overflow
+        W = nwords(k)
+        return ([torch.stack(decode_lanes(lanes, W), dim=-1)
+                 for lanes, _ in shards], [rid for _, rid in shards],
+                overflow)
+    return fn
+
+
+def match_fn(mesh: Mesh, k: int, max_ids: int = 16, min_depth: int = 0):
+    """The JAX `match_fn` call: returns fn(queries [Q, W] words (uint32
+    numpy or int64 tensor), index_keys, index_rid as build_index_fn gives
+    them) -> ids [Q, max_ids] int32 on mesh.device: the first max_ids read
+    ids of each query's run on its owner shard, -1 past the run's end and
+    for every id of a run shorter than max(min_depth, 1); the JAX ids."""
+    def fn(queries, index_keys, index_rid):
+        if not isinstance(queries, torch.Tensor):
+            queries = torch.from_numpy(np.asarray(queries, np.int64))
+        q = queries.to(mesh.device)
+        shards = [(encode_lanes([keys[:, w] for w in range(keys.shape[1])]),
+                   rid) for keys, rid in zip(index_keys, index_rid)]
+        return match_shards(shards, [q[:, w] for w in range(q.shape[1])],
+                            max_ids, min_depth)
+    return fn
 
 
 class MeshReadIndex:

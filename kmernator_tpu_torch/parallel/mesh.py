@@ -1,13 +1,16 @@
-"""The device mesh of the port, its shard exchange, and the extension
-spectrum on it.
+"""The device mesh of the port, its shard exchange, and the spectra on it.
 
 Twin of kmernator_tpu/parallel/mesh.py: `make_mesh`, the owner hash
 (`owner_hash_cols`, `owner_hash`), the bucket scatter
 (`bucket_scatter_cols`, the JAX `_bucket_scatter_cols`), the exchange that
-stands for its all_to_all, and the MeraculousCounter mesh path,
-`distributed_extension_fn` with its `_window_extensions_device` and
-`_count_received_ext` (`extension_spectrum_mesh`,
-`window_extensions_device`, `count_received_ext`).
+stands for its all_to_all, the count of received rows
+(`count_received_cols`, `count_received`), the three shard_map steps
+(`distributed_spectrum_fn`, `distributed_count_fn`,
+`distributed_extension_fn`, every shard in one process), and the
+MeraculousCounter mesh path (`extension_spectrum_mesh`: the extension
+step with the app's capacity retry; `window_extensions_device` and
+`count_received_ext`, the JAX `_window_extensions_device` and
+`_count_received_ext`).
 
 `--mesh N` is one process with N shards. The JAX `make_mesh` takes the
 first N of jax.devices() and, on a host with fewer, builds a smaller mesh
@@ -38,9 +41,11 @@ import torch
 from kmernator_tpu_torch.ops.extensions import EXT_X
 from kmernator_tpu_torch.ops.kmer import (MASK32, SENTINEL_LANE,
                                           SENTINEL_WORD, check_k,
-                                          encode_lanes)
+                                          decode_lanes, encode_lanes,
+                                          nwords)
 from kmernator_tpu_torch.parallel.device_spectrum import (
-    extract_canonical_cols, is_sentinel, sort_lanes)
+    extract_canonical_cols, is_sentinel, run_bounds, run_totals,
+    sort_lanes, window_good)
 from kmernator_tpu_torch.parallel.multihost import (all_to_all_planes,
                                                     allreduce_max_int)
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
@@ -281,21 +286,25 @@ def count_received_ext(lanes: List[torch.Tensor], good: torch.Tensor,
     run's last row, and the 13 sums are reduced to the kept rows one at a
     time, so that only one [n] sum is held at once. Counts wrap at 32 bits
     as the JAX scans do."""
+    s, _, keep, counts, ext = _count_ext_runs(lanes, good, el, er, min_count)
+    return [lane[keep] for lane in s], counts, ext
+
+
+def _count_ext_runs(lanes: List[torch.Tensor], good: torch.Tensor,
+                    el: torch.Tensor, er: torch.Tensor, min_count: int):
+    """count_received_ext with its sorted state: (s, the L sorted [n]
+    lanes; first, last [M] int64, the first and the last row of each kept
+    run in s; counts [M] int32; ext [M, 12] int32)."""
     s, perm = sort_lanes(lanes)
     sgood = good[perm]
-    n = s[0].numel()
     cnt = run_length_sums(s, sgood.to(torch.int32))
-    is_end = torch.ones(n, dtype=torch.bool, device=cnt.device)
-    if n > 1:
-        neq = s[0][1:] != s[0][:-1]
-        for lane in s[1:]:
-            neq |= lane[1:] != lane[:-1]
-        is_end[:-1] = neq
-        del neq
-    keep = torch.nonzero(is_end & ~is_sentinel(s)
-                         & (cnt >= min_count)).squeeze(1)
+    boundary, is_end = run_bounds(s)
+    ends = torch.nonzero(is_end).squeeze(1)
+    kept = ~is_sentinel([lane[ends] for lane in s]) & (cnt[ends] >= min_count)
+    first = torch.nonzero(boundary).squeeze(1)[kept]
+    keep = ends[kept]
     counts = cnt[keep]
-    del cnt, is_end
+    del cnt, boundary, is_end, ends, kept
     ext = torch.empty((keep.numel(), 12), dtype=torch.int32,
                       device=counts.device)
     for side, col in enumerate((el, er)):
@@ -304,25 +313,22 @@ def count_received_ext(lanes: List[torch.Tensor], good: torch.Tensor,
             ext[:, 6 * side + code] = run_length_sums(
                 s, (sgood & (scol == code)).to(torch.int32))[keep]
         del scol
-    return [lane[keep] for lane in s], counts, ext
+    return s, first, keep, counts, ext
 
 
-def extension_spectrum_mesh(mesh: Mesh, k: int, codes: torch.Tensor,
-                            good2d: torch.Tensor, ext_ok2d: torch.Tensor,
-                            lengths: torch.Tensor, min_count: int,
-                            capacity_factor: float = 2.0):
-    """The extension-tracking spectrum over the mesh's shards (the JAX
-    `distributed_extension_fn` step). codes [B, L] (0..3), good2d [B, NW]
-    bool (the exact host mask), ext_ok2d [B, L] bool, lengths [B]; all on
-    mesh.device, B a multiple of D = mesh.size. The reads split into D
-    contiguous blocks, as shard_map splits them; each block routes its good
-    windows' keys, good flags and extension codes to their owners in
-    buckets of C = ceil(N / D * capacity_factor) rows (N windows a block),
-    and each owner counts what it received (the planes as wide as the
-    largest bucket, `plane_width`). Returns (lanes, counts, ext,
-    overflow): count_received_ext's tables of all shards merged in key
-    order, and 0; or (None, None, None, the rows past C) when a bucket
-    overflows, for the caller to retry at a larger capacity_factor."""
+def _route_extensions(mesh: Mesh, k: int, codes: torch.Tensor,
+                      good2d: torch.Tensor, ext_ok2d: torch.Tensor,
+                      lengths: torch.Tensor, capacity_factor: float,
+                      fixed: bool):
+    """The route of the extension spectrum: the reads split into D
+    contiguous blocks, as shard_map splits them; each block's good
+    windows' key lanes, good flags and extension codes go to their owners
+    in buckets of C = ceil(N / D * capacity_factor) rows (N windows a
+    block). fixed: planes C wide, the rows past C dropped and counted (the
+    JAX step); else planes as wide as the largest bucket (`plane_width`),
+    and nothing routed when that passes C. Returns ((received lanes L x [D,
+    D * width], good, left, right [D, D * width]), overflow [D] int64 rows
+    past C a source) or (None, their sum)."""
     check_k(k)
     D = mesh.size
     B = codes.shape[0]
@@ -336,11 +342,14 @@ def extension_spectrum_mesh(mesh: Mesh, k: int, codes: torch.Tensor,
     del canon
     owner = owners(words, D)
     C = math.ceil(N / D * capacity_factor)
-    loads = bucket_loads(owner, g, D)
-    width = plane_width(loads)
-    if width > C:
-        return None, None, None, int((loads - C).clamp_(min=0).sum())
-    win_slot, _ = bucket_slots(owner, g, D, width)
+    if fixed:
+        width = C
+    else:
+        loads = bucket_loads(owner, g, D)
+        width = plane_width(loads)
+        if width > C:
+            return None, int((loads - C).clamp_(min=0).sum())
+    win_slot, overflow = bucket_slots(owner, g, D, width)
     del owner
     el, er = window_extensions_device(codes, lengths, is_fwd, ext_ok2d, k)
     del is_fwd
@@ -350,10 +359,32 @@ def extension_spectrum_mesh(mesh: Mesh, k: int, codes: torch.Tensor,
     rg, rl, rr = (exchange(scatter_plane(x.reshape(D, -1), win_slot, D,
                                          width, fill))
                   for x, fill in ((g, False), (el, -1), (er, -1)))
-    del win_slot, el, er
+    return (recv, rg, rl, rr), overflow
+
+
+def extension_spectrum_mesh(mesh: Mesh, k: int, codes: torch.Tensor,
+                            good2d: torch.Tensor, ext_ok2d: torch.Tensor,
+                            lengths: torch.Tensor, min_count: int,
+                            capacity_factor: float = 2.0):
+    """The extension-tracking spectrum over the mesh's shards (the JAX
+    `distributed_extension_fn` step, with the MeraculousCounter app's
+    retry). codes [B, L] (0..3), good2d [B, NW] bool (the exact host mask),
+    ext_ok2d [B, L] bool, lengths [B]; all on mesh.device, B a multiple of
+    D = mesh.size. Routes as `_route_extensions` with planes as wide as
+    the largest bucket, and each owner counts what it received. Returns
+    (lanes, counts, ext, overflow): count_received_ext's tables of all
+    shards merged in key order, and 0; or (None, None, None, the rows past
+    C) when a bucket overflows, for the caller to retry at a larger
+    capacity_factor."""
+    routed, overflow = _route_extensions(mesh, k, codes, good2d, ext_ok2d,
+                                         lengths, capacity_factor, False)
+    if routed is None:
+        return None, None, None, overflow
+    recv, rg, rl, rr = routed
+    D = mesh.size
     shards = [count_received_ext([lane[d] for lane in recv], rg[d], rl[d],
                                  rr[d], min_count) for d in range(D)]
-    del recv, rg, rl, rr
+    del recv, rg, rl, rr, routed
     if D == 1:
         return shards[0] + (0,)
     # each key lives in one shard: the shards laid end to end, then put in
@@ -363,3 +394,175 @@ def extension_spectrum_mesh(mesh: Mesh, k: int, codes: torch.Tensor,
     counts = torch.cat([s[1] for s in shards])[perm]
     ext = torch.cat([s[2] for s in shards])[perm]
     return lanes, counts, ext, 0
+
+
+# ---- the JAX shard_map steps, every shard in this process ----
+
+def _count_received_lanes(lanes: List[torch.Tensor], good: torch.Tensor,
+                          min_count: int, W: int):
+    """count_received_cols over L int64 key lanes of W-word keys."""
+    s, perm = sort_lanes(lanes)
+    boundary, _, total = run_totals(s, good[perm].to(torch.int32))
+    sent = is_sentinel(s)
+    zero = torch.zeros_like(total)
+    cnt = torch.empty_like(total)
+    cnt[perm] = torch.where(sent | (total < min_count), zero, total)
+    keep = boundary & ~sent & (total > 0)
+    shard_keys = torch.stack(decode_lanes(
+        [torch.where(keep, lane, SENTINEL_LANE) for lane in s], W), dim=-1)
+    return cnt, shard_keys, torch.where(boundary, total, zero)
+
+
+def count_received_cols(key_cols: List[torch.Tensor], good: torch.Tensor,
+                        min_count: int):
+    """The count of one shard's received rows (the JAX
+    `_count_received_cols`): key_cols W [n] int64 word columns (the
+    sentinel in empty slots), good [n] (bool or int 0/1). Returns (cnt [n]
+    int32: the good rows of each row's key, 0 below min_count and at the
+    sentinel, in the rows' order; shard_keys [n, W] int64 words: the
+    received keys in key order, the sentinel but at the first row of each
+    non-sentinel run with a good row; shard_counts [n] int32: each run's
+    good rows at its first row, 0 elsewhere), as JAX lays them out. The
+    run totals come from the run-length kernel (one launch), wrapping at
+    32 bits as the JAX int32 scans do."""
+    return _count_received_lanes(encode_lanes(list(key_cols)), good,
+                                 min_count, len(key_cols))
+
+
+def count_received(keys2d: torch.Tensor, good: torch.Tensor,
+                   min_count: int):
+    """count_received_cols of keys2d [n, W] int64 words (the JAX
+    `_count_received`)."""
+    return count_received_cols([keys2d[:, w] for w in range(keys2d.shape[1])],
+                               good, min_count)
+
+
+def _one_process(mesh: Mesh) -> None:
+    if mesh.nprocs > 1:
+        raise NotImplementedError(
+            "the distributed_*_fn steps hold every shard in one process; "
+            "across processes FilterReads routes through mesh_stream")
+
+
+def _count_step(mesh: Mesh, k: int, codes: torch.Tensor,
+                good2d: torch.Tensor, lengths: torch.Tensor,
+                capacity_factor: float, min_count: int):
+    """The body of distributed_spectrum_fn and distributed_count_fn: the
+    reads split into D contiguous blocks; every non-sentinel window of a
+    block, good or not, goes to its owner in a bucket of C rows with its
+    good flag (the rows past C dropped and counted); each owner counts
+    what it received (`count_received_cols`), and the counts come back the
+    same way to the windows that sent them. Returns (counts [B, NW] int32,
+    shard_keys [D * D * C, W], shard_counts [D * D * C], overflow [D]
+    int32)."""
+    _one_process(mesh)
+    check_k(k)
+    D = mesh.size
+    B = codes.shape[0]
+    if B % D:
+        raise ValueError("%d reads do not split into %d shards" % (B, D))
+    cols, _, valid = extract_canonical_cols(codes, lengths, k)
+    W = len(cols)
+    NW = valid.shape[1]
+    key_cols = [c.reshape(D, -1) for c in cols]
+    del cols
+    N = key_cols[0].shape[1]
+    C = math.ceil(N / D * capacity_factor)
+    sent = key_cols[0] == SENTINEL_WORD
+    for col in key_cols[1:]:
+        sent &= col == SENTINEL_WORD
+    win_slot, overflow = bucket_slots(owners(key_cols, D), ~sent, D, C)
+    del sent
+    recv = [exchange(scatter_plane(lane, win_slot, D, C, SENTINEL_LANE))
+            for lane in encode_lanes(key_cols)]
+    del key_cols
+    g = (good2d & valid).reshape(D, N).to(torch.int32)
+    rgood = exchange(scatter_plane(g, win_slot, D, C, 0))
+    del g
+    shards = [_count_received_lanes([lane[d] for lane in recv], rgood[d],
+                                    min_count, W) for d in range(D)]
+    del recv, rgood
+    back = exchange(torch.stack([s[0] for s in shards]).reshape(D, D, C))
+    counts = back.gather(1, win_slot.clamp(min=0))
+    counts = torch.where((win_slot >= 0) & valid.reshape(D, N), counts,
+                         torch.zeros_like(counts))
+    return (counts.reshape(B, NW), torch.cat([s[1] for s in shards]),
+            torch.cat([s[2] for s in shards]), overflow.to(torch.int32))
+
+
+def distributed_spectrum_fn(mesh: Mesh, k: int, capacity_factor: float = 2.0,
+                            min_count: int = 2,
+                            log2_min_weight: float = math.log2(0.10)):
+    """The multi-shard spectrum step (the JAX distributed_spectrum_fn) over
+    `mesh`, every shard in this process. Returns fn(codes [B, L] (0..3),
+    logp [B, L] float32, lengths [B]), tensors on mesh.device with B a
+    multiple of D = mesh.size, split into D contiguous blocks as the JAX
+    P(axis) sharding splits them -> (counts [B, NW] int32: each window's
+    key count over all blocks' good windows, 0 below min_count and at
+    invalid windows; shard_keys [D * D * C, W] int64 words and
+    shard_counts [D * D * C] int32: each shard's `count_received_cols`
+    table, shards end to end; overflow [D] int32, the windows of each
+    block dropped past C). The good mask is window_good's (ROADMAP 3o);
+    C = ceil(N / D * capacity_factor) for N windows a block, fixed, with no
+    retry. Where a bucket overflows, which rows it drops follows the rows'
+    order here and the JAX sort's tie order there."""
+    def fn(codes, logp, lengths):
+        _, good = window_good(logp, lengths, k, log2_min_weight)
+        return _count_step(mesh, k, codes, good, lengths, capacity_factor,
+                           min_count)
+    return fn
+
+
+def distributed_count_fn(mesh: Mesh, k: int, capacity_factor: float = 2.0,
+                         min_count: int = 2):
+    """distributed_spectrum_fn with the good mask given (the JAX
+    distributed_count_fn, the FilterReads --mesh count): fn(codes [B, L],
+    good [B, NW] bool, lengths [B]) -> (counts [B, NW] int32, overflow [D]
+    int32)."""
+    def fn(codes, good, lengths):
+        counts, _, _, overflow = _count_step(mesh, k, codes, good, lengths,
+                                             capacity_factor, min_count)
+        return counts, overflow
+    return fn
+
+
+def distributed_extension_fn(mesh: Mesh, k: int, capacity_factor: float = 2.0,
+                             min_count: int = 2):
+    """The extension-tracking spectrum step (the JAX
+    distributed_extension_fn) over `mesh`, every shard in this process:
+    fn(codes [B, L], good [B, NW] bool, ext_ok [B, L] bool, lengths [B]),
+    tensors on mesh.device, B split into D contiguous blocks -> (shard_keys
+    [D * D * C, W] int64 words, shard_counts [D * D * C] int32, shard_ext
+    [D * D * C, 12] int32, overflow [D] int32), each shard's rows as the
+    JAX `_count_received_ext` lays them out: its received keys in key
+    order, a run's key, count and extension counters at the run's first
+    row where the key is not the sentinel and counts >= min_count, the
+    sentinel and zeros elsewhere. C is fixed at ceil(N / D *
+    capacity_factor), the rows past it dropped and counted, with no retry
+    (the MeraculousCounter app retries through extension_spectrum_mesh).
+    Each shard's rows come from one sort (`_count_ext_runs`, the counters
+    of count_received_ext with the first row of each kept run)."""
+    def fn(codes, good, ext_ok, lengths):
+        _one_process(mesh)
+        (recv, rg, rl, rr), overflow = _route_extensions(
+            mesh, k, codes, good, ext_ok, lengths, capacity_factor, True)
+        W = nwords(k)
+        out = []
+        for d in range(mesh.size):
+            s, first, _, counts, ext = _count_ext_runs(
+                [lane[d] for lane in recv], rg[d], rl[d], rr[d], min_count)
+            n = s[0].numel()
+            keys = torch.full((n, W), SENTINEL_WORD, dtype=torch.int64,
+                              device=counts.device)
+            keys[first] = torch.stack(
+                decode_lanes([lane[first] for lane in s], W), dim=-1)
+            full_counts = torch.zeros(n, dtype=torch.int32,
+                                      device=counts.device)
+            full_counts[first] = counts
+            full_ext = torch.zeros((n, 12), dtype=torch.int32,
+                                   device=counts.device)
+            full_ext[first] = ext
+            out.append((keys, full_counts, full_ext))
+        return (torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out]),
+                torch.cat([o[2] for o in out]), overflow.to(torch.int32))
+    return fn

@@ -827,3 +827,114 @@ def test_tnf_distances_on_the_card(cuda_device, tmp_path):
             for d in ("cuda", "cpu")]
     assert max(abs(float(a) - float(b)) for x, y in zip(*rows)
                for a, b in zip(x[1:], y[1:])) <= 1.0e-4   # no diagonal
+
+
+def _library_batch(k, B=512, L=120, seed=0):
+    """Reads of a 20 kb genome, some short, logp in multiples of 2^-9
+    (window sums exact in float32, so the card's and the CPU's good masks
+    are one), a few zero-probability bases."""
+    rng = np.random.default_rng(seed + k)
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    starts = rng.integers(0, len(genome) - L, B)
+    codes = genome[starts[:, None] + np.arange(L)[None, :]].astype(np.uint8)
+    lengths = rng.integers(k - 3, L + 1, B).astype(np.int32)
+    codes[np.arange(L)[None, :] >= lengths[:, None]] = 0
+    logp = (-rng.integers(0, 80, (B, L)) / 512).astype(np.float32)
+    logp[rng.random((B, L)) < 0.002] = np.float32(-1e30)
+    return codes, logp, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 45])
+def test_spectrum_step_matches_cpu(cuda_device, k):
+    """spectrum_step, compact_spectrum and lookup_join on the card against
+    the same calls on CPU tensors: bit-equal; one run-length launch a
+    count_and_score, one a merge_tables."""
+    args = [torch.from_numpy(a) for a in _library_batch(k)]
+    want = ds.spectrum_step(*args, k)
+    before = rl.launches
+    got = ds.spectrum_step(*(a.to(cuda_device) for a in args), k)
+    torch.cuda.synchronize()
+    assert rl.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert int(want[0].max()) >= 2
+    state_cpu = ds.count_and_score(want[1], want[2], k, 1)[1]
+    state = ds.count_and_score(got[1], got[2], k, 1)[1]
+    table_cpu = ds.compact_spectrum(*state_cpu)
+    table = ds.compact_spectrum(*state)
+    for a, b in zip(table, table_cpu):
+        assert torch.equal(a.cpu(), b)
+    keys = want[1].reshape(-1, want[1].shape[-1])
+    assert torch.equal(
+        ds.lookup_join(table[0], table[1], keys.to(cuda_device)).cpu(),
+        ds.lookup_join(table_cpu[0], table_cpu[1], keys))
+    merged = ds.merge_tables(table[0], table[1], table[0], table[1])
+    merged_cpu = ds.merge_tables(table_cpu[0], table_cpu[1], table_cpu[0],
+                                 table_cpu[1])
+    for a, b in zip(merged, merged_cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_window_good_phred_matches_cpu_outside_the_band(cuda_device):
+    """Phred log-probabilities: the card's float64 scan and the CPU's
+    sequential prefix give one good mask but within the stated bound of
+    the threshold."""
+    rng = np.random.default_rng(4)
+    q = rng.integers(2, 41, (4096, 150))
+    logp = torch.from_numpy(np.log2(1.0 - 10.0 ** (-q / 10.0)).astype(
+        np.float32))
+    lengths = torch.full((4096,), 150, dtype=torch.int32)
+    lmw = float(np.log2(0.1))
+    w_cpu, g_cpu = ds.window_good(logp, lengths, 31, lmw)
+    w, g = ds.window_good(logp.to(cuda_device), lengths.to(cuda_device), 31,
+                          lmw)
+    band = ((w_cpu.double() - lmw).abs()
+            <= ds.window_good_bound(logp)[:, None])
+    assert torch.equal(g.cpu()[~band], g_cpu[~band])
+    assert ((w.cpu().double() - w_cpu.double()).abs()
+            <= ds.window_good_bound(logp)[:, None]).all()
+
+
+@pytest.mark.cuda
+def test_streaming_spectrum_matches_cpu(cuda_device):
+    """StreamingSpectrum on the card against the CPU run of the same
+    batches at a capacity under the distinct keys: the tables and
+    purged_singletons bit-equal; one run-length launch a batch and one a
+    drain."""
+    from kmernator_tpu_torch.parallel.pipeline import StreamingSpectrum
+    batches = [_library_batch(31, seed=s) for s in range(6)]
+    cpu = StreamingSpectrum(31, 40_000, device="cpu")
+    gpu = StreamingSpectrum(31, 40_000, device=cuda_device)
+    before = rl.launches
+    for b in batches:
+        cpu.add_batch(*b)
+        gpu.add_batch(*b)
+    want, got = cpu.finalize(2), gpu.finalize(2)
+    assert gpu.purged_singletons == cpu.purged_singletons > 0
+    assert rl.launches == before + len(batches) + gpu.drains
+    for a, b in zip(want, got):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_distributed_count_fn_matches_cpu(cuda_device, D):
+    """distributed_count_fn over D shards on the card against D shards on
+    the CPU: counts and overflow bit-equal, one run-length launch a
+    shard; and at D > 1 the counts are D = 1's."""
+    from kmernator_tpu_torch.parallel.mesh import distributed_count_fn
+    codes, _, lengths = _library_batch(31, B=1024)
+    good = np.random.default_rng(D).random((1024, 90)) < 0.9
+    args = [torch.from_numpy(a) for a in (codes, good, lengths)]
+    want = distributed_count_fn(make_mesh(D, "cpu"), 31)(*args)
+    before = rl.launches
+    got = distributed_count_fn(make_mesh(D, cuda_device), 31)(
+        *(a.to(cuda_device) for a in args))
+    torch.cuda.synchronize()
+    assert rl.launches == before + D
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    one = distributed_count_fn(make_mesh(1, "cpu"), 31)(*args)[0]
+    assert torch.equal(want[0], one) and int(one.max()) >= 2

@@ -12,7 +12,9 @@ tnf_distance, bam_sort with SAM and BAM output, filter_and_sort_sam),
 then checks that no module named jax, kmernator_tpu or kmernator_tpu.* was
 loaded; so do two gloo ranks of FilterReads at --nprocs 2, in memory and
 with --streaming --distributed. And no source file of the port names the
-JAX package in an import, lazy ones inside functions included."""
+JAX package in an import, lazy ones inside functions included; nor does
+`python -m kmernator_tpu_torch.entry --device cpu` (entry() and the
+dryrun at one shard, with parallel/pipeline.py imported beside them)."""
 import os
 import re
 import signal
@@ -214,7 +216,9 @@ def test_no_source_imports_the_jax_package():
                 "apps/filter_and_sort_sam.py", "parallel/bam_exchange.py",
                 "apps/fastq2fasta.py", "apps/randomly_sample.py",
                 "apps/split_sequence.py", "apps/compare_spectrums.py",
-                "apps/estimate_size.py", "apps/tnf_distance.py"):
+                "apps/estimate_size.py", "apps/tnf_distance.py",
+                "parallel/pipeline.py", "entry.py",
+                "parallel/device_spectrum.py"):
         assert os.path.join(REPO, "kmernator_tpu_torch", new) in sources
     found = []
     for path in sources:
@@ -230,3 +234,19 @@ def test_no_source_imports_the_jax_package():
         assert JAX_PACKAGE_IMPORT.search(line), line
     assert not JAX_PACKAGE_IMPORT.search("from kmernator_tpu_torch.ops "
                                          "import kmer")
+
+
+ENTRY = r"""
+import runpy
+import kmernator_tpu_torch.parallel.pipeline
+sys.argv = ["kmernator_tpu_torch.entry", "--device", "cpu"]
+try:
+    runpy.run_module("kmernator_tpu_torch.entry", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+"""
+
+
+def test_entry_main_never_imports_jax(tmp_path):
+    """The entry module as `python -m` runs it, with --device cpu."""
+    _run_clean(ENTRY, tmp_path)
