@@ -156,9 +156,24 @@ started together) and drives the port's paths on the card:
      `entry.dryrun_multichip(n)` for n = 1, 2 and 4, with its asserts and
      FilterReads byte checks, and its wall. Its launches join the kernels
      line.
-Phase 3 also holds the kernel's two- and three-lane instantiations
-(k <= 64, k <= 96) bit-equal to their plain versions at the drain's shape
-and times them beside the one-lane kernel.
+ 20. k > 96 (`phase_wide_k`), on phase 5's input: FilterReads in-memory
+     `--mesh 1` at k=97 (W = 7 words, L = 4 lanes: an odd last word) and
+     k=145 (L = 5), `--streaming --mesh 2` at k=127, `--streaming
+     --distributed --nprocs 1` at k=97 (against the k=97 oracle's
+     outputs), MeraculousCounter `--mesh 2` at k=101 and the assembler
+     `--mesh 1` at k=99 (25 of phase 12's seeds, `--minimum-coverage 2`),
+     each byte-identical to the JAX package's host engine at the same k,
+     run as a separate program on the CPU beside the port's runs; and
+     library-k127: `spectrum_step` and `count_batch` on 32,768 seeded
+     reads of 150 bp at k=127 (786,432 windows) bit-equal to a np.unique
+     oracle, `distributed_count_fn` at D = 2 bit-equal to D = 1. Each run
+     prints its wall time, its run-length launches by lane count, its
+     drains, the device time of its drains and lookups (CUDA events) and
+     its peak device memory. Its launches join the kernels line.
+Phase 3 also holds the kernel's two- and three-lane instances (k <= 64,
+k <= 96) and its run-time lane loop at four, five and ten lanes (k <= 128,
+160, 320) bit-equal to their plain versions at edge cases, and at the
+drain's shape at L = 2-5, where it times them beside the one-lane kernel.
 
 Inputs come from the port's own generator and from seeded numpy. Fails
 (non-zero exit, no result line) without a CUDA device, outside a
@@ -170,13 +185,14 @@ per-kernel results, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
@@ -202,6 +218,10 @@ PRESSURE_ROWS = 50_000
 # script; a job that passes its time limit fails the phase
 NPROCS, RANK_TIMEOUT = 2, 600
 K16, K16_CAP = 16, 1 << 24           # one 32-bit word a key; 2^24 slots
+# phase 3: the lane counts held to the plain version (L = 2, 3: the
+# unrolled instances; 4 and up: the run-time lane loop) and those timed at
+# the drain's shape
+LANE_COUNTS, TIMED_LANES = (2, 3, 4, 5, 10), (2, 3, 4, 5)
 # phase 19: StreamingSpectrum's rows on phase 4's input (past its distinct
 # keys: no purge) and in the purge case on phase 5's (under them)
 STREAM_ROWS, PURGE_ROWS = 1 << 26, 1 << 20
@@ -260,6 +280,15 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def lanes_since(rl, before) -> dict:
+    """The run-length kernel's launches by lane count since `before`, a
+    copy of rl.launches_by_lanes taken earlier: {L: launches} for every L
+    launched in between."""
+    return {L: n - before.get(L, 0)
+            for L, n in sorted(rl.launches_by_lanes.items())
+            if n > before.get(L, 0)}
 
 
 def bytes_bound_ms(nbytes: float) -> float:
@@ -363,25 +392,26 @@ def lane_keys(lanes: torch.Tensor, L: int):
 
 
 def phase_lanes(rl, cases, gen, times) -> int:
-    """The kernel's L = 2 and 3 instantiations against the plain version,
-    bit-equal, at the drain's shape and at edge cases (a length off the
-    tile, runs that end in the first lane only, an 8-byte-offset view);
-    device times at the drain's shape, beside the bound of (8L + 8) B a
-    row."""
+    """The kernel's L = 2 and 3 instances and its run-time lane loop at L
+    = 4, 5 and 10 against the plain version, bit-equal, at the drain's
+    shape (L = 2-5) and at edge cases (a length off the tile, runs that end
+    in the first lane only, an 8-byte-offset view); device times at the
+    drain's shape (L = 2-5), beside the bound of (8L + 8) B a row."""
     max_err = 0
     lanes, vals = cases["drain_96M"]
     n = lanes.numel()
     small = sorted_lanes(1 << 20, 5000, gen, 70_000)
     ones = torch.ones(small.numel() + 1, dtype=torch.int32, device="cuda")
-    for L in (2, 3):
+    for L in LANE_COUNTS:
         edge = {
-            "drain_96M": (lane_keys(lanes, L), vals),
             "n_not_tile_multiple": ([x[:2048 * 5 + 3] for x in
                                      lane_keys(small, L)], ones[:2048 * 5 + 3]),
             "first_lane_only": ([small] + [torch.zeros_like(small)] * (L - 1),
                                 ones[1:]),
             "offset_view": ([torch.cat([small[:1], small])[1:]
                              for _ in range(L)], ones[1:])}
+        if L in TIMED_LANES:
+            edge["drain_96M"] = (lane_keys(lanes, L), vals)
         for name, (ks, v) in edge.items():
             want = rl.run_length_sums_plain(ks, v)
             got = rl.run_length_sums(ks, v)
@@ -395,6 +425,8 @@ def phase_lanes(rl, cases, gen, times) -> int:
             max_err = max(max_err, err)
             log("kernel L=%d %-20s n=%-10d bit-equal"
                 % (L, name, ks[0].numel()))
+        if L not in TIMED_LANES:
+            continue
         ks = edge["drain_96M"][0]
         turn = [("plain", lambda: rl.run_length_sums_plain(ks, vals)),
                 ("kernel", lambda: rl.run_length_sums(ks, vals))]
@@ -435,6 +467,32 @@ def outputs(prefix: str):
     d, base = os.path.split(prefix)
     return {n[len(base):]: os.path.join(d, n)
             for n in sorted(os.listdir(d)) if n.startswith(base)}
+
+
+def fr_oracle(name: str, fq: str, k: int, extra_env, args=()) -> dict:
+    """The JAX package's FilterReads host engine at k on fq (a separate
+    program): {"host_out", "host_s", "host_log"}."""
+    host_out = os.path.join(WORK, name + "-host")
+    t0 = time.perf_counter()
+    host_log = host_engine(host_out, fq, extra_env, k, args)
+    return {"host_out": host_out, "host_s": time.perf_counter() - t0,
+            "host_log": host_log}
+
+
+def mer_oracle(name: str, fq: str, k: int, extra_env) -> dict:
+    """The JAX package's MeraculousCounter host engine at k on fq (a
+    separate program): {"host_out", "host_s"}."""
+    host_out = os.path.join(WORK, name + "-host")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "kmernator_tpu.apps.meraculous_counter",
+                           "--kmer-size", str(k), "--out", host_out, fq],
+                          env=env_with_root(**extra_env),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit("%s: the host engine exited %d:\n%s"
+                         % (name, proc.returncode, proc.stderr[-3000:]))
+    return {"host_out": host_out, "host_s": time.perf_counter() - t0}
 
 
 def host_engine(out: str, fq: str, extra_env, k: int = K,
@@ -619,7 +677,6 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
             return n
 
     port_out = os.path.join(WORK, name + "-port")
-    host_out = os.path.join(WORK, name + "-host")
     saved_env = {k: os.environ.get(k) for k in extra_env}
     os.environ.update(extra_env)
     plain_class = app.MeshStreamingSpectrum
@@ -632,7 +689,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     torch.cuda.reset_peak_memory_stats()
     try:
         rl.launches = 0
-        by_lanes = dict(rl.launches_by_lanes)
+        before = dict(rl.launches_by_lanes)
         t0 = time.perf_counter()
         rc = app.run(["--device", "cuda", "--mesh", str(mesh)]
                      + list(port_args) + ["--out", port_out] + FLAGS
@@ -641,8 +698,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
         t_end = time.perf_counter()
         t_port = t_end - t0
         launches = rl.launches
-        by_lanes = {n: rl.launches_by_lanes[n] - by_lanes[n]
-                    for n in by_lanes}
+        by_lanes = lanes_since(rl, before)
     finally:
         app.MeshStreamingSpectrum = plain_class
         restore_steps(plain_steps)
@@ -653,13 +709,10 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
                 os.environ[key] = v
     if rc != 0:
         raise SystemExit("%s: port FilterReads exited %d" % (name, rc))
-    if host_from is None:
-        t0 = time.perf_counter()
-        host_log = host_engine(host_out, fq, extra_env, k, args)
-        t_host = time.perf_counter() - t0
-    else:
-        host_out, t_host = host_from["host_out"], host_from["host_s"]
-        host_log = host_from["host_log"]
+    host_from = resolved(host_from)
+    oracle = host_from or fr_oracle(name, fq, k, extra_env, args)
+    host_out, t_host = oracle["host_out"], oracle["host_s"]
+    host_log = oracle["host_log"]
     mine, want = outputs(port_out), outputs(host_out)
     same_files(name, mine, want, "the host engine")
     if launches <= 0:
@@ -671,7 +724,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
                          % (name, mesh))
     sp = tables[0]
     lanes = (k + 31) // 32
-    if by_lanes[lanes] != launches or sp.L != lanes:
+    if by_lanes.get(lanes, 0) != launches or sp.L != lanes:
         raise SystemExit("%s: k=%d keys are %d lanes, but the table has %d "
                          "and the kernel ran %s" % (name, k, lanes, sp.L,
                                                     by_lanes))
@@ -745,7 +798,8 @@ def phase_distributed(name: str, fq: str, n_reads: int, rl, k: int,
                          % (name, r["caps"]))
     if r["purged"] != 0:
         raise SystemExit("%s: %d singletons purged" % (name, r["purged"]))
-    if r["launches"] != r["drains"] or r["by_lanes"][lanes] != r["drains"]:
+    if r["launches"] != r["drains"] \
+            or r["by_lanes"].get(lanes, 0) != r["drains"]:
         raise SystemExit("%s: %d drains, but the run-length kernel ran %s"
                          % (name, r["drains"], r["by_lanes"]))
     if r["lookups"] < 1 or r["pass2_s"] is None:
@@ -813,7 +867,6 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
         return out
 
     port_out = os.path.join(WORK, name + "-port")
-    host_out = os.path.join(WORK, name + "-host")
     for step in plain:
         setattr(app, step, host_timed(step))
     app.extension_spectrum_mesh = device_timed
@@ -831,7 +884,7 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
         t_end = time.perf_counter()
         t_port = t_end - t0
         launches = rl.launches
-        by_lanes = {n: rl.launches_by_lanes[n] - before[n] for n in before}
+        by_lanes = lanes_since(rl, before)
     finally:
         for step, fn in plain.items():
             setattr(app, step, fn)
@@ -839,19 +892,9 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     peak = torch.cuda.max_memory_allocated() / 2**30
     if rc != 0:
         raise SystemExit("%s: port MeraculousCounter exited %d" % (name, rc))
-    if host_from is None:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m",
-                               "kmernator_tpu.apps.meraculous_counter",
-                               "--kmer-size", str(k), "--out", host_out, fq],
-                              env=env_with_root(), capture_output=True,
-                              text=True)
-        t_host = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise SystemExit("%s: the host engine exited %d:\n%s"
-                             % (name, proc.returncode, proc.stderr[-3000:]))
-    else:
-        host_out, t_host = host_from["host_out"], host_from["host_s"]
+    host_from = resolved(host_from)
+    oracle = host_from or mer_oracle(name, fq, k, {})
+    host_out, t_host = oracle["host_out"], oracle["host_s"]
     mine, want = outputs(port_out), outputs(host_out)
     suffixes = {".mercount.m%d" % k, ".mergraph.m%d.D2" % k}
     if set(want) != suffixes or set(mine) != suffixes:
@@ -871,7 +914,7 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     if (not calls or calls[-1]["overflow"] or
             {c["on"] for c in calls} != {"cuda:0"}
             or launches != want_launches
-            or by_lanes[lanes] != want_launches):
+            or by_lanes.get(lanes, 0) != want_launches):
         raise SystemExit("%s: expected extension_spectrum_mesh on the card "
                          "and %d run-length launches at %d lanes; got %s "
                          "and %s" % (name, want_launches, lanes, calls,
@@ -903,6 +946,31 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
             "count_ms": count_ms, "retries": len(calls) - 1, **call}
 
 
+def resolved(host_from):
+    """An earlier run's result, or an oracle's still running in a thread
+    (a Future), once it is done."""
+    return host_from.result() if isinstance(host_from, Future) else host_from
+
+
+def asm_oracle(name: str, fq: str, k: int, seeds: str, iterations: int,
+               args, extra_env) -> dict:
+    """The JAX package's nucleating assembler (its host engine, a separate
+    program) on the seeds: {"host_out", "host_s"}."""
+    host_out = os.path.join(WORK, name + "-host.fa")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "kmernator_tpu.apps.nucleating_assembler",
+                           "--contig-file", seeds, "--max-iterations",
+                           str(iterations)] + list(args)
+                          + ["--out", host_out, str(k), fq],
+                          env=env_with_root(**extra_env),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit("%s: the host engine exited %d:\n%s"
+                         % (name, proc.returncode, proc.stderr[-3000:]))
+    return {"host_out": host_out, "host_s": time.perf_counter() - t0}
+
+
 def draw_seeds(fq: str, n_reads: int, path: str, n_seeds: int,
                length: int = 100) -> None:
     """The assembler's seeds: the first `length` bases of n_seeds reads of
@@ -921,7 +989,7 @@ def draw_seeds(fq: str, n_reads: int, path: str, n_seeds: int,
 
 def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
                     n_seeds: int, iterations: int, mesh: int = 1,
-                    host_from=None, keep_host=False):
+                    host_from=None, keep_host=False, seeds=None, args=()):
     """The nucleating assembler --mesh `mesh`, the port in process on the
     card, against the JAX package's host engine (its k-mer read index, no
     mesh; a subprocess; host_from: an earlier run's result whose seeds and
@@ -930,13 +998,15 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
     iteration, no kernel launched. Prints the index's rows and distinct
     keys, queries and hits a iteration, the device time of the index build,
     of its shard exchange and of each match (CUDA events), peak device
-    memory, both wall times, and the port's host seconds by step."""
+    memory, both wall times, and the port's host seconds by step. seeds: a
+    FASTA of n_seeds seeds to take (else drawn here, or an earlier
+    host_from's); args: more flags for both engines."""
     import kmernator_tpu_torch.apps.nucleating_assembler as app
     from kmernator_tpu_torch.parallel import dist_match as dm
-    if host_from is None:
+    if seeds is None and host_from is None:
         seeds = os.path.join(WORK, name + "-seeds.fa")
         draw_seeds(fq, n_reads, seeds, n_seeds)
-    else:
+    elif seeds is None:
         seeds = host_from["seeds"]
     stages, builds, matches = {}, [], []
     shard_events = {}
@@ -992,7 +1062,6 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
         return call
 
     port_out = os.path.join(WORK, name + "-port.fa")
-    host_out = os.path.join(WORK, name + "-host.fa")
     for mod, step in plain:
         setattr(mod, step, host_timed(mod, step))
     dm.build_index = device_timed(plain_build, builds, index_summary,
@@ -1006,7 +1075,8 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
         t0 = time.perf_counter()
         rc = app.run(["--device", "cuda", "--mesh", str(mesh),
                       "--contig-file", seeds, "--max-iterations",
-                      str(iterations), "--out", port_out, str(k), fq])
+                      str(iterations)] + list(args)
+                     + ["--out", port_out, str(k), fq])
         torch.cuda.synchronize()
         t_port = time.perf_counter() - t0
     finally:
@@ -1019,20 +1089,9 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
         raise SystemExit("%s: the port's assembler exited %d" % (name, rc))
     if (rl.launches, dict(ms.launches), hi.launches) != counters:
         raise SystemExit("%s: the assembler's path launched a kernel" % name)
-    if host_from is None:
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m",
-                               "kmernator_tpu.apps.nucleating_assembler",
-                               "--contig-file", seeds, "--max-iterations",
-                               str(iterations), "--out", host_out, str(k),
-                               fq], env=env_with_root(), capture_output=True,
-                              text=True)
-        t_host = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise SystemExit("%s: the host engine exited %d:\n%s"
-                             % (name, proc.returncode, proc.stderr[-3000:]))
-    else:
-        host_out, t_host = host_from["host_out"], host_from["host_s"]
+    oracle = resolved(host_from) or asm_oracle(name, fq, k, seeds,
+                                               iterations, args, {})
+    host_out, t_host = oracle["host_out"], oracle["host_s"]
     mine, want = outputs(port_out), outputs(host_out)
     if "" not in want or set(mine) != set(want):
         raise SystemExit("%s: output files differ: %s vs %s"
@@ -2185,13 +2244,13 @@ def rank_child(figures: str, argv) -> int:
                 events)
     torch.cuda.reset_peak_memory_stats()
     rl.launches = 0
-    by_lanes = dict(rl.launches_by_lanes)
+    before = dict(rl.launches_by_lanes)
     t0 = time.perf_counter()
     rc = app.run(["--device", "cuda"] + list(argv))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = rl.launches
-    by_lanes = {L: rl.launches_by_lanes[L] - by_lanes[L] for L in by_lanes}
+    by_lanes = lanes_since(rl, before)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kmernator_tpu"))
     if rc != 0 or loaded or len(tables) != 1:
@@ -2330,7 +2389,7 @@ def phase_nprocs(cells, smi: str):
             if r["table_on"] != "cuda:0" or r["shards"] != 1 \
                     or r["mesh"] != NPROCS or r["drains"] < 1 \
                     or r["launches"] != r["drains"] \
-                    or r["by_lanes"][str(lanes)] != r["launches"]:
+                    or r["by_lanes"].get(str(lanes), 0) != r["launches"]:
                 raise SystemExit("%s: rank %d: table on %s, %d of %d "
                                  "shards, %d drains, run-length launches "
                                  "%s" % (name, r["rank"], r["table_on"],
@@ -2388,9 +2447,10 @@ def phase_nprocs(cells, smi: str):
         results.append({"name": name, "k": k, "wall_s": wall,
                         "reads": n_reads, "jax_s": t_jax,
                         "launches": sum(r["launches"] for r in ranks),
-                        "by_lanes": {int(L): sum(r["by_lanes"][L]
+                        "by_lanes": {int(L): sum(r["by_lanes"].get(L, 0)
                                                  for r in ranks)
-                                     for L in ranks[0]["by_lanes"]},
+                                     for L in set().union(*(
+                                         r["by_lanes"] for r in ranks))},
                         "ranks": [{key: v for key, v in r.items()
                                    if key != "log"} for r in ranks]})
     return results
@@ -2400,7 +2460,7 @@ def drive(rl, fn):
     """fn() with the run-length counts set to 0 just before it: (its
     result, its launches by lane count, read after a synchronize)."""
     rl.launches = 0
-    rl.launches_by_lanes.update({1: 0, 2: 0, 3: 0})
+    rl.launches_by_lanes.clear()
     out = fn()
     torch.cuda.synchronize()
     return out, dict(rl.launches_by_lanes)
@@ -2445,12 +2505,11 @@ def phase_library(rl, smi: str, fq256: str, n256: int, fq32: str,
     from kmernator_tpu_torch.parallel.mesh_stream import (
         MeshStreamingSpectrum)
     lmw = float(np.log2(0.10))
-    by_lanes = {1: 0, 2: 0, 3: 0}
+    by_lanes = collections.Counter()
     fig = {}
 
     def tally(lanes):
-        for L, n in lanes.items():
-            by_lanes[L] += n
+        by_lanes.update(lanes)
         return sum(lanes.values())
 
     # a. the entry point
@@ -2673,7 +2732,191 @@ def phase_library(rl, smi: str, fq256: str, n256: int, fq32: str,
             "passed in %.2f s wall; run_length launches %d"
             % (n, fig["dryrun_s_%d" % n], fig["dryrun_launches_%d" % n]))
     fig["launches"] = sum(by_lanes.values())
-    return by_lanes, fig
+    return dict(by_lanes), fig
+
+
+# phase 20: k > 96 on phase 5's input. The assembler cell takes the first
+# WIDE_ASM_SEEDS of phase 12's asm-k45 seeds with --minimum-coverage 2 on
+# both engines: at k = 99 a 150 bp read overlaps a seed's end by at most
+# 51 bases, and few seeds reach the default 4.8 reads there. The library
+# cell: WIDE_LIB_READS seeded reads of WIDE_LIB_LEN bp at k = WIDE_LIB_K
+# (786,432 windows, four-lane keys).
+WIDE_ASM_SEEDS, WIDE_ASM_ARGS = 25, ["--minimum-coverage", "2"]
+WIDE_LIB_READS, WIDE_LIB_LEN, WIDE_LIB_K = 32768, 150, 127
+
+
+def first_seeds(path: str, n: int, out: str) -> str:
+    """The first n seeds of a draw_seeds FASTA, written to out."""
+    with open(path, "rb") as f:
+        lines = f.read().split(b"\n")
+    with open(out, "wb") as f:
+        f.write(b"\n".join(lines[:2 * n]) + b"\n")
+    return out
+
+
+def library_wide(rl, smi: str, dev: str = "cuda"):
+    """library-k127: spectrum_step and count_batch at k = WIDE_LIB_K on
+    WIDE_LIB_READS seeded reads of WIDE_LIB_LEN bp from a 200 kb genome
+    (some 25x; 0.2% substitutions,
+    phred 30-40 with 0.2% of the bases at phred 2), each a drive of its
+    own: the canonical keys the CPU's, spectrum_step's counts and
+    count_batch's table bit-equal to a np.unique oracle;
+    distributed_count_fn at D = 2 bit-equal to D = 1 and to spectrum_step's
+    counts, no overflow. Returns the launches by lane count and the
+    figures (device times by CUDA events, peak device memory)."""
+    from kmernator_tpu_torch.parallel import device_spectrum as ds
+    from kmernator_tpu_torch.parallel.mesh import (distributed_count_fn,
+                                                   make_mesh)
+    k, B, n_len = WIDE_LIB_K, WIDE_LIB_READS, WIDE_LIB_LEN
+    W = (k + 15) // 16
+    rng = np.random.default_rng(20)
+    genome = rng.integers(0, 4, 200_000, dtype=np.uint8)
+    starts = rng.integers(0, genome.size - n_len, B)
+    codes = genome[starts[:, None] + np.arange(n_len)[None, :]]
+    err = rng.random(codes.shape) < 0.002
+    codes = np.where(err, (codes + rng.integers(1, 4, codes.shape)) % 4,
+                     codes).astype(np.uint8)
+    q = rng.integers(30, 41, codes.shape)
+    q[rng.random(codes.shape) < 0.002] = 2
+    logp = np.log2(1.0 - 10.0 ** (-q / 10.0)).astype(np.float32)
+    host = [torch.from_numpy(a) for a in
+            (codes, logp, np.full(B, n_len, np.int32))]
+    dc, dl, dn = (a.to(dev) for a in host)
+    by_lanes = collections.Counter()
+    fig = {"windows": B * (n_len - k + 1)}
+    torch.cuda.reset_peak_memory_stats()
+
+    t0 = time.perf_counter()
+    (counts, canon, good), lanes = drive(
+        rl, lambda: ds.spectrum_step(dc, dl, dn, k))
+    fig["step_wall_s"] = time.perf_counter() - t0
+    by_lanes.update(lanes)
+    fig["step_launches"] = dict(lanes)
+    cols = [c.reshape(-1) for c in canon.unbind(-1)]
+    gflat = good.reshape(-1)
+    table, lanes = drive(rl, lambda: ds.count_batch(cols, gflat, 1))
+    by_lanes.update(lanes)
+    fig["count_launches"] = dict(lanes)
+    fig["step_ms"] = cuda_ms(lambda: ds.spectrum_step(dc, dl, dn, k), 3)
+    fig["count_ms"] = cuda_ms(lambda: ds.count_batch(cols, gflat, 1), 3)
+
+    words = canon.reshape(-1, W).cpu().numpy()
+    if not np.array_equal(words, ds.extract_canonical(
+            host[0], host[2], k)[0].reshape(-1, W).numpy()):
+        raise SystemExit("library-k127: canonical keys differ from the "
+                         "CPU's")
+    g = gflat.cpu().numpy()
+    keys = np.ascontiguousarray(words.astype(">u4")).view(
+        np.dtype((np.void, 4 * W))).ravel()
+    uk, inv = np.unique(keys, return_inverse=True)
+    cnt = np.bincount(inv.ravel()[g], minlength=len(uk))
+    seen = cnt[inv.ravel()]
+    if not np.array_equal(counts.reshape(-1).cpu().numpy(),
+                          np.where(seen >= 2, seen, 0)):
+        raise SystemExit("library-k127: spectrum_step's counts disagree "
+                         "with np.unique")
+    tk, tc, tn = (x.cpu().numpy() for x in table)
+    kept, present = tc > 0, cnt > 0
+    want_keys = np.frombuffer(uk[present].tobytes(), ">u4").reshape(-1, W)
+    if not (int(tn) == int(present.sum())
+            and np.array_equal(tk[kept], want_keys.astype(np.int64))
+            and np.array_equal(tc[kept], cnt[present])
+            and (tk[~kept] == 0xFFFFFFFF).all()):
+        raise SystemExit("library-k127: count_batch's table disagrees with "
+                         "np.unique")
+    ref = None
+    for D in (1, 2):
+        mesh = make_mesh(D, dev)
+        (cn, over), lanes = drive(
+            rl, lambda: distributed_count_fn(mesh, k)(dc, good, dn))
+        by_lanes.update(lanes)
+        fig["dist_launches_D%d" % D] = dict(lanes)
+        fig["dist_ms_D%d" % D] = cuda_ms(
+            lambda: distributed_count_fn(mesh, k)(dc, good, dn), 1)
+        if int(over.sum()) or not torch.equal(cn, counts) or (
+                ref is not None and not torch.equal(cn, ref)):
+            raise SystemExit("library-k127: distributed_count_fn at D = %d "
+                             "overflowed (%d) or differs from "
+                             "spectrum_step's or D = 1's counts"
+                             % (D, int(over.sum())))
+        ref = cn
+    fig.update(good=int(g.sum()), distinct=int(tn),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("library-k127: %d windows at k=%d (%d-lane keys), %d good, %d "
+        "distinct: spectrum_step's counts and count_batch's table "
+        "bit-equal to np.unique, distributed_count_fn at D = 1 and 2 to "
+        "spectrum_step; spectrum_step %.4f ms, count_batch %.4f ms, "
+        "distributed_count_fn %.2f / %.2f ms of device time (CUDA "
+        "events); run_length launches by L: step %s, count_batch %s, D = "
+        "1 %s, D = 2 %s; peak device memory %.2f GiB [%s]"
+        % (fig["windows"], k, (k + 31) // 32, fig["good"], fig["distinct"],
+           fig["step_ms"], fig["count_ms"], fig["dist_ms_D1"],
+           fig["dist_ms_D2"], fig["step_launches"], fig["count_launches"],
+           fig["dist_launches_D1"], fig["dist_launches_D2"],
+           fig["peak_gib"], smi))
+    fig["launches"] = sum(by_lanes.values())
+    return dict(by_lanes), fig
+
+
+def phase_wide_k(rl, ms, hi, fq32: str, n32: int, in_memory, asm_seeds: str,
+                 smi: str):
+    """Phase 20: k > 96 on the card, on phase 5's input. FilterReads
+    in-memory --mesh 1 at k=97 (W = 7, L = 4: an odd last word) and k=145
+    (L = 5), --streaming --mesh 2 at k=127, --streaming --distributed
+    --nprocs 1 at k=97 (against the k=97 oracle's outputs),
+    MeraculousCounter --mesh 2 at k=101 and the assembler --mesh 1 at k=99
+    on WIDE_ASM_SEEDS of phase 12's seeds, each byte-identical to the JAX
+    package's host engine at the same k; then library-k127. The host
+    engines run as separate programs on the CPU (JAX_PLATFORMS=cpu), all
+    started at the phase's start, beside the port's runs on the card.
+    Returns (the FilterReads and MeraculousCounter runs, the assembler run,
+    the library's launches by lane count, its figures)."""
+    cpu = {"JAX_PLATFORMS": "cpu"}
+    seeds = first_seeds(asm_seeds, WIDE_ASM_SEEDS,
+                        os.path.join(WORK, "asm-k99-seeds.fa"))
+    pool = ThreadPoolExecutor(5)
+    oracles = {
+        name: pool.submit(fr_oracle, name, fq32, k, dict(in_memory, **cpu))
+        for name, k in (("wide-k97", 97), ("wide-k127-streaming-mesh2", 127),
+                        ("wide-k145", 145))}
+    oracles["meraculous-k101-mesh2"] = pool.submit(
+        mer_oracle, "meraculous-k101-mesh2", fq32, 101, cpu)
+    oracles["asm-k99"] = pool.submit(
+        asm_oracle, "asm-k99", fq32, 99, seeds, ASM_ITERATIONS,
+        WIDE_ASM_ARGS, cpu)
+    try:
+        fr = [phase_app("wide-k97", fq32, n32, rl, in_memory, k=97,
+                        host_from=oracles["wide-k97"]),
+              phase_app("wide-k127-streaming-mesh2", fq32, n32, rl,
+                        in_memory, k=127, mesh=2, port_args=["--streaming"],
+                        host_from=oracles["wide-k127-streaming-mesh2"]),
+              phase_app("wide-k145", fq32, n32, rl, in_memory, k=145,
+                        host_from=oracles["wide-k145"])]
+        fr.append(phase_distributed("dist-k97", fq32, n32, rl, 97, fr[0],
+                                    fr[0]))
+        for r in fr:
+            log("%s: k=%d, --mesh %d, %.2f s wall; run_length launches by "
+                "L %s; %d drains, %.1f ms of device time; %d lookups, %.1f "
+                "ms (CUDA events); peak device memory %.2f GiB"
+                % (r["name"], r["k"], r["mesh"], r["port_s"], r["by_lanes"],
+                   r["drains"], r["drain_ms"], r["lookups"],
+                   r["lookup_device_ms"], r["peak_gib"]))
+        mer = phase_meraculous("meraculous-k101-mesh2", fq32, n32, rl, 101,
+                               mesh=2, host_from=oracles[
+                                   "meraculous-k101-mesh2"])
+        asm = phase_assembler("asm-k99", fq32, n32, rl, ms, hi, 99,
+                              WIDE_ASM_SEEDS, ASM_ITERATIONS, seeds=seeds,
+                              args=WIDE_ASM_ARGS,
+                              host_from=oracles["asm-k99"])
+        lib_lanes, lib = library_wide(rl, smi)
+    finally:
+        pool.shutdown(wait=True)
+        for f in oracles.values():
+            if f.exception() is None:
+                for path in outputs(f.result()["host_out"]).values():
+                    os.remove(path)
+        os.remove(seeds)
+    return fr + [mer], asm, lib_lanes, lib
 
 
 def main() -> int:
@@ -2829,14 +3072,20 @@ def main() -> int:
     t0 = time.perf_counter()
     library_lanes, library = phase_library(rl, smi, fq256, n256, fq32,
                                            count["torch_ms"])
+    os.remove(fq256)
+    log("phase 19 device library and entry points ok [%.1f s]"
+        % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    wide_runs, wide_asm, wide_lanes, wide_lib = phase_wide_k(
+        rl, ms, hi, fq32, n32, in_memory, asm[1]["seeds"], smi)
     for r in runs[:2] + [wide[1], purge_run] + mer:
         for path in outputs(r["host_out"]).values():
             os.remove(path)
-    for path in [fq256, fq32, fq_purge, asm[1]["seeds"]] + list(
+    for path in [fq32, fq_purge, asm[1]["seeds"]] + list(
             outputs(asm[1]["host_out"]).values()):
         os.remove(path)
-    log("phase 19 device library and entry points ok [%.1f s]"
-        % (time.perf_counter() - t0))
+    log("phase 20 k > 96 ok [%.1f s]" % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer + dist
     launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
     runs += mesh_runs["runs"]
@@ -2844,12 +3093,20 @@ def main() -> int:
     runs += nprocs_runs
     launches += sum(r["launches"] for r in nprocs_runs)
     launches += library["launches"]
-    by_lanes = {L: sum(r["by_lanes"][L] for r in runs) + library_lanes[L]
-                for L in (1, 2, 3)}
+    runs += wide_runs
+    launches += sum(r["launches"] for r in wide_runs) + wide_lib["launches"]
+    by_lanes = collections.Counter(library_lanes)
+    by_lanes.update(wide_lanes)
+    for r in runs:
+        by_lanes.update(r["by_lanes"])
     by_lanes[1] += count["run_length"]
-    if min(by_lanes.values()) <= 0:
+    by_lanes = dict(sorted(by_lanes.items()))
+    if sum(by_lanes.values()) != launches or any(
+            by_lanes.get(L, 0) <= 0 for L in (1, 2, 3, 4, 5)):
         raise SystemExit("the main path did not launch the run-length "
-                         "kernel at every lane count: %s" % by_lanes)
+                         "kernel at every lane count 1-5 (or the counts "
+                         "by lane miss some of its %d launches): %s"
+                         % (launches, by_lanes))
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kmernator_tpu"))
@@ -2869,11 +3126,12 @@ def main() -> int:
     log("assembler runs (no kernel launched): %s" % json.dumps({
         r["name"]: {key: v for key, v in r.items()
                     if key not in ("name", "host_out", "seeds")}
-        for r in asm + [mesh_runs["asm"]]}))
+        for r in asm + [mesh_runs["asm"], wide_asm]}))
     log("TnfDistance, BamSort and small-app runs (no kernel launched): %s"
         % json.dumps({"tnf": tnf_run, "bam": bam_run, "small": small}))
     log("device library and entry points (phase 19): %s"
         % json.dumps(library))
+    log("library-k127 (phase 20): %s" % json.dumps(wide_lib))
     log("chip_smoke: every phase passed in %.1f s"
         % (time.perf_counter() - t_start))
     log(smi)
@@ -2900,7 +3158,13 @@ def main() -> int:
         "lanes2_bound_ms": times["drain_96M_L2"]["bound"],
         "lanes3_ms": times["drain_96M_L3"]["kernel"],
         "lanes3_plain_ms": times["drain_96M_L3"]["plain"],
-        "lanes3_bound_ms": times["drain_96M_L3"]["bound"]}, {
+        "lanes3_bound_ms": times["drain_96M_L3"]["bound"],
+        "lanes4_ms": times["drain_96M_L4"]["kernel"],
+        "lanes4_plain_ms": times["drain_96M_L4"]["plain"],
+        "lanes4_bound_ms": times["drain_96M_L4"]["bound"],
+        "lanes5_ms": times["drain_96M_L5"]["kernel"],
+        "lanes5_plain_ms": times["drain_96M_L5"]["plain"],
+        "lanes5_bound_ms": times["drain_96M_L5"]["bound"]}, {
         "name": "local_sort_blocks", "route": "cuda",
         "source": "kmernator_tpu_torch/csrc/merge_sort.cu",
         "replaces": "kmernator_tpu/parallel/pallas_sort.py:360",

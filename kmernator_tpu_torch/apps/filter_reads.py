@@ -40,8 +40,8 @@ source in its package imports and in these places:
 - `--mesh N` runs N shards in one process on the one device (the JAX
   mesh of N devices; parallel/mesh.py). Under --nprocs the mesh count is
   ignored, as in JAX.
-  k > 96 is refused on a --mesh path and in the distributed engines (keys
-  of at most 3 int64 lanes; the JAX package takes any k there).
+  Every engine takes any k, as the source does (the --mesh paths and the
+  distributed engines: keys of ceil(k / 32) int64 lanes).
 """
 from __future__ import annotations
 
@@ -56,7 +56,7 @@ from kmernator_tpu_torch.io.reads import (ReadSet, load_reads, format_read,
                                           format_reads_batch, BASE_CODE)
 from kmernator_tpu_torch.ops.artifact import (ArtifactFilter,
                                               apply_artifact_filter)
-from kmernator_tpu_torch.ops.kmer import check_k, extract_kmers_flat
+from kmernator_tpu_torch.ops.kmer import extract_kmers_flat
 from kmernator_tpu_torch.ops.trim import (ReadTrims, score_and_trim,
                                           pick_all_passing)
 from kmernator_tpu_torch.ops.weights import window_weights, good_kmer_mask
@@ -238,7 +238,6 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
     over the processes (a process with fewer reads feeds empty batches),
     and each process counts its own reads."""
     from kmernator_tpu_torch.parallel import multihost
-    check_k(k)
     multi = multihost.process_count() > 1
     L = max(rs.max_length(), k)
     if multi:
@@ -759,7 +758,6 @@ def _streaming_mesh_count(chunks, input_files, k, min_quality, output_base,
     into the mesh_devices shard tables on the device; the host never holds
     more than one chunk."""
     from kmernator_tpu_torch.io.stream import estimate_raw_kmers
-    check_k(k)
     if capacity <= 0:
         # the JAX package's per-device clamp: the estimate, at most 64M rows
         est = estimate_raw_kmers(input_files, k)

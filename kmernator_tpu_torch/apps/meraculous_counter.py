@@ -28,9 +28,8 @@ places:
   bytes above. The source stores u64 at every k, so its streaming engine
   fails for k > 32.
 - `run` takes `--device cuda|cpu` (default cuda; cuda without a visible GPU
-  raises) in place of `--jax-platform`. k > 96 with --mesh is refused
-  (check_k: keys of at most 3 int64 lanes; the JAX package takes any k
-  there). The host engines take any k.
+  raises) in place of `--jax-platform`. Every engine takes any k, as the
+  source does (--mesh N: keys of ceil(k / 32) int64 lanes).
 """
 from __future__ import annotations
 
@@ -43,9 +42,9 @@ import torch
 
 from kmernator_tpu_torch.io.reads import ReadSet, load_reads, BASE_CODE
 from kmernator_tpu_torch.ops.extensions import window_extensions, EXT_MIN_QUALITY
-from kmernator_tpu_torch.ops.kmer import (check_k, decode_lanes,
-                                          extract_kmers_flat, kmer_to_string,
-                                          nwords, revcomp_words)
+from kmernator_tpu_torch.ops.kmer import (decode_lanes, extract_kmers_flat,
+                                          kmer_to_string, nwords,
+                                          revcomp_words)
 from kmernator_tpu_torch.ops.weights import window_weights, good_kmer_mask
 from kmernator_tpu_torch.parallel.device_spectrum import (pack_readset,
                                                           ragged_to_padded)
@@ -426,7 +425,6 @@ def run(argv: List[str]) -> int:
         return 1
     if mesh_devices > 0:
         make_mesh(mesh_devices, device)
-        check_k(k)
     # inputs past the in-memory comfort zone auto-select the streaming
     # builder (the reference's MeraculousCounter is the streaming MPI
     # build; this is its bounded-memory single-host analogue)

@@ -16,10 +16,8 @@ It differs from its source in its package imports and in:
   cuda without a visible GPU raises, so the host and vmatch engines need
   `--device cpu` on a machine without one);
 - the `--mesh N` branch builds the read index of parallel/dist_match.py
-  on N shards of that device in place of the JAX mesh of N devices; k > 96
-  there (when the k-mer matcher is selected, k > 0) is refused by
-  `check_k` before the input is read. The host engines take any k, as in
-  the source.
+  on N shards of that device in place of the JAX mesh of N devices, at
+  any k, as in the source (keys of ceil(k / 32) int64 lanes).
 """
 from __future__ import annotations
 
@@ -33,7 +31,6 @@ from kmernator_tpu_torch.io.reads import ReadSet, load_reads, format_read
 from kmernator_tpu_torch.ops.artifact import ArtifactFilter, apply_artifact_filter
 from kmernator_tpu_torch.ops.extend import (ExtendParams, extend_contigs,
                                       get_min_max_kmer_size, new_contig_name)
-from kmernator_tpu_torch.ops.kmer import check_k
 from kmernator_tpu_torch.ops.match import KmerReadIndex, match_pools
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.utils.device import resolve_device
@@ -162,7 +159,6 @@ def run(argv: List[str]) -> int:
     # (apps/DistributedNucleatingAssembler.cpp:392-397)
     if asm.mesh and not use_vmatch:
         make_mesh(asm.mesh, device)
-        check_k(kopts.kmer_size)
 
     rs = load_reads(opts.input_file, opts.fastq_base_quality,
                     opts.fastq_output_base_quality, opts.keep_read_comment)

@@ -4,9 +4,13 @@
 // (`run_length_counts`, kernel body `_kernel`): for keys sorted so that equal
 // keys are adjacent, out[i] = sum(vals[run]) when i is the last index of its
 // run of equal keys, and 0 elsewhere. Any n >= 0 is accepted; there is no
-// block-multiple rule. A key is L = 1, 2 or 3 int64 lanes (k <= 32, 64, 96;
+// block-multiple rule. A key is L int64 lanes of any count (ceil(k / 32):
 // ops/kmer.py encode_lanes), one array a lane; two rows are one key when
-// every lane is equal. The kernel is a template on L.
+// every lane is equal. The kernel is a template on L: L = 1, 2 and 3 (k <=
+// 96) are instances with their lane pointers in the kernel's parameters and
+// the lane loop unrolled; one more instance, L = 0, takes any L >= 1 from a
+// device array of L lane pointers and loops over them at run time with the
+// same per-lane pass, so no k the JAX package runs is past it.
 //
 // What bounds it: bytes. Each row is read once (8 B a lane + 4 B value) and
 // written once (4 B), 8L + 8 B a row, against a handful of integer
@@ -200,10 +204,22 @@ __device__ Seg look_back(const unsigned long long* desc, long long tile) {
 }
 
 // The L key lanes of a row (ops/kmer.py encode_lanes): two rows are one key
-// when every lane is equal.
+// when every lane is equal. L = 1, 2, 3: the pointers by value, their count
+// known at compile time.
 template <int L>
 struct Lanes {
   const int64_t* p[L];
+  __device__ static constexpr int size() { return L; }
+};
+
+// Any number of lanes: a device array of n lane pointers (written by the
+// caller on the launch's stream before the launch), their count read at run
+// time.
+template <>
+struct Lanes<0> {
+  const int64_t* const* p;
+  int n;
+  __device__ int size() const { return n; }
 };
 
 template <int L>
@@ -229,11 +245,12 @@ run_length_scan(Lanes<L> keys, const int32_t* __restrict__ vals,
   // one lane at a time through shared memory: bit t of `dprev` (`dnext`)
   // says row j0 + t differs from the row before (after) it in some lane;
   // each thread's ITEMS values, 16-byte aligned and contiguous, go straight
-  // into registers with the first lane
+  // into registers with the first lane (the loop is unrolled for L = 1-3,
+  // and runs as a loop for L = 0, where the count is known at run time only)
   int v[ITEMS];
   unsigned dprev = 0, dnext = 0;
 #pragma unroll
-  for (int l = 0; l < L; ++l) {
+  for (int l = 0; l < keys.size(); ++l) {
     const int64_t* __restrict__ lane = keys.p[l];
     if (l > 0) __syncthreads();        // every read of the last lane is done
     if (full) {
@@ -346,17 +363,18 @@ run_length_scan(Lanes<L> keys, const int32_t* __restrict__ vals,
   if (carried) emit(combine(s_prefix, run));
 }
 
+// keys_aligned: every lane pointer is 16-byte aligned.
 template <int L>
-int launch(Lanes<L> keys, const void* vals, void* out, void* scratch,
-           int64_t n, void* stream) {
+int launch(Lanes<L> keys, int keys_aligned, const void* vals, void* out,
+           void* scratch, int64_t n, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const int64_t ntiles = (n + TILE - 1) / TILE;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(
       scratch, 0, (size_t)(ntiles + 1) * sizeof(unsigned long long), st);
   if (err != cudaSuccess) return (int)err;
-  int vec = ((uintptr_t)vals % 16 == 0) && ((uintptr_t)out % 16 == 0);
-  for (int l = 0; l < L; ++l) vec = vec && (uintptr_t)keys.p[l] % 16 == 0;
+  const int vec = keys_aligned && ((uintptr_t)vals % 16 == 0) &&
+                  ((uintptr_t)out % 16 == 0);
   run_length_scan<L><<<(unsigned)ntiles, THREADS, 0, st>>>(
       keys, static_cast<const int32_t*>(vals), static_cast<int32_t*>(out), n,
       static_cast<unsigned long long*>(scratch), vec);
@@ -375,20 +393,41 @@ int kmtpu_run_length_tile() { return TILE; }
 // ignored); vals [n] int32, out [n] int32, scratch [1 + ceil(n /
 // kmtpu_run_length_tile())] 64-bit words (zeroed here, on the stream).
 // Launches on `stream` and returns the first CUDA error (0 = launched), or
-// -1 for another L.
+// -1 for another L (kmtpu_run_length_sums_lanes takes any L).
 int kmtpu_run_length_sums(int L, const void* k0, const void* k1,
                           const void* k2, const void* vals, void* out,
                           void* scratch, int64_t n, void* stream) {
   const int64_t* a = static_cast<const int64_t*>(k0);
   const int64_t* b = static_cast<const int64_t*>(k1);
   const int64_t* c = static_cast<const int64_t*>(k2);
+  const int al = (uintptr_t)a % 16 == 0;
   switch (L) {
-    case 1: return launch<1>(Lanes<1>{{a}}, vals, out, scratch, n, stream);
-    case 2: return launch<2>(Lanes<2>{{a, b}}, vals, out, scratch, n, stream);
+    case 1:
+      return launch<1>(Lanes<1>{{a}}, al, vals, out, scratch, n, stream);
+    case 2:
+      return launch<2>(Lanes<2>{{a, b}}, al && (uintptr_t)b % 16 == 0, vals,
+                       out, scratch, n, stream);
     case 3:
-      return launch<3>(Lanes<3>{{a, b, c}}, vals, out, scratch, n, stream);
+      return launch<3>(Lanes<3>{{a, b, c}},
+                       al && (uintptr_t)b % 16 == 0 && (uintptr_t)c % 16 == 0,
+                       vals, out, scratch, n, stream);
     default: return -1;
   }
+}
+
+// Keys of any L >= 1 int64 lanes: lane_ptrs is a DEVICE array of L lane
+// pointers (each lane [n], as above), written on `stream` before this call;
+// lanes_aligned says every lane pointer is 16-byte aligned. The other
+// arguments and the result are those of kmtpu_run_length_sums; -1 for
+// L < 1.
+int kmtpu_run_length_sums_lanes(int L, const void* lane_ptrs,
+                                int lanes_aligned, const void* vals,
+                                void* out, void* scratch, int64_t n,
+                                void* stream) {
+  if (L < 1) return -1;
+  return launch<0>(
+      Lanes<0>{static_cast<const int64_t* const*>(lane_ptrs), L},
+      lanes_aligned, vals, out, scratch, n, stream);
 }
 
 }  // extern "C"

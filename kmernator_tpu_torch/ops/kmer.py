@@ -23,8 +23,10 @@ package's unsigned lexicographic word order, and the all-ones sentinel
 becomes INT64_MAX in every lane, which still sorts last. When W is odd the
 last lane fills its low word with ones (as W = 1 does), which keeps the
 order and maps the sentinel word to the same INT64_MAX. For W <= 2 (k <=
-32) the key is one lane (`encode_lane`, `decode_lane`); up to W = 6 (k <=
-96) it is at most 3 lanes (`encode_lanes`, `decode_lanes`).
+32) the key is one lane (`encode_lane`, `decode_lane`); past that it is
+L lanes of any count (`encode_lanes`, `decode_lanes`), so every k the JAX
+package takes has a key: k = 97-112 is W = 7, L = 4 (the first odd W past
+three lanes), k = 145 is L = 5, k = 320 is L = 10.
 """
 from __future__ import annotations
 
@@ -250,23 +252,11 @@ MASK32 = 0xFFFFFFFF
 SENTINEL_WORD = 0xFFFFFFFF
 SIGN = -(1 << 63)                      # the int64 with only bit 63 set
 SENTINEL_LANE = (1 << 63) - 1          # INT64_MAX: all-ones key ^ SIGN
-MAX_LANES = 3
-MAX_K = 32 * MAX_LANES                 # 96: the reference's MAX_KMER_SIZE is 95
 
 
 def nlanes(W: int) -> int:
     """int64 key lanes of a W-word key."""
     return (W + 1) // 2
-
-
-def check_k(k: int) -> None:
-    """The key layout holds at most MAX_LANES lanes: W <= 6 words (k <=
-    96)."""
-    if not 0 < k <= MAX_K:
-        raise NotImplementedError(
-            "kmernator_tpu_torch supports 1 <= k <= %d (keys in at most %d "
-            "int64 lanes); k=%d (W=%d words) is past the port's key layout"
-            % (MAX_K, MAX_LANES, k, nwords(k)))
 
 
 def pack16_torch(codes: torch.Tensor) -> torch.Tensor:
@@ -313,10 +303,9 @@ def encode_lanes(cols: List[torch.Tensor]) -> List[torch.Tensor]:
     """W word columns (int64 in [0, 2^32)) -> L = ceil(W/2) order-preserving
     int64 key lanes: a lexicographic signed compare over them equals the
     unsigned word order. One column pair a lane, encoded by encode_lane
-    (an odd last word fills its lane's low word with ones)."""
-    if not 0 < len(cols) <= 2 * MAX_LANES:
-        raise NotImplementedError("keys hold 1 to %d words, got %d"
-                                  % (2 * MAX_LANES, len(cols)))
+    (an odd last word fills its lane's low word with ones). Any W >= 1."""
+    if not cols:
+        raise ValueError("a key holds at least one word")
     return [encode_lane(cols[j:j + 2]) for j in range(0, len(cols), 2)]
 
 

@@ -14,7 +14,7 @@ does (only the owner writes an id, so the merge puts each answer in
 place).
 
 Keys are int64 lanes (ops/kmer.py `encode_lanes`: one lane for k <= 32,
-up to 3 for k <= 96; `check_k` refuses more). Read ids are the rows of the
+ceil(k / 32) lanes at any larger k). Read ids are the rows of the
 read set padded to a multiple of D (the JAX `read_global`).
 
 Differences from the JAX module besides the torch tensors:
@@ -40,7 +40,7 @@ import torch
 
 from kmernator_tpu_torch.io.reads import BASE_CODE
 from kmernator_tpu_torch.ops.kmer import (SENTINEL_LANE, SENTINEL_WORD,
-                                          check_k, decode_lanes,
+                                          decode_lanes,
                                           encode_lanes, extract_kmers_flat,
                                           nwords)
 from kmernator_tpu_torch.ops.weights import good_kmer_mask, window_weights
@@ -71,7 +71,6 @@ def build_index(mesh: Mesh, k: int, codes: torch.Tensor,
     overflows, for the caller to retry at a larger capacity_factor. A
     row's id is its read's row in the batch, or read_global [B] int32 (the
     JAX `read_global`; ids ascend within a run when it ascends)."""
-    check_k(k)
     D = mesh.size
     B = codes.shape[0]
     if B % D:

@@ -40,7 +40,7 @@ import torch
 
 from kmernator_tpu_torch.ops.extensions import EXT_X
 from kmernator_tpu_torch.ops.kmer import (MASK32, SENTINEL_LANE,
-                                          SENTINEL_WORD, check_k,
+                                          SENTINEL_WORD,
                                           decode_lanes, encode_lanes,
                                           nwords)
 from kmernator_tpu_torch.parallel.device_spectrum import (
@@ -329,7 +329,6 @@ def _route_extensions(mesh: Mesh, k: int, codes: torch.Tensor,
     and nothing routed when that passes C. Returns ((received lanes L x [D,
     D * width], good, left, right [D, D * width]), overflow [D] int64 rows
     past C a source) or (None, their sum)."""
-    check_k(k)
     D = mesh.size
     B = codes.shape[0]
     if B % D:
@@ -456,7 +455,6 @@ def _count_step(mesh: Mesh, k: int, codes: torch.Tensor,
     shard_keys [D * D * C, W], shard_counts [D * D * C], overflow [D]
     int32)."""
     _one_process(mesh)
-    check_k(k)
     D = mesh.size
     B = codes.shape[0]
     if B % D:

@@ -31,7 +31,7 @@ torch device (every shard at one process; one a process under --nprocs).
            loads a host table split by owner.
 
 A shard table is L = ceil(W/2) int64 key lanes (ops/kmer.py encode_lanes:
-one lane for k <= 32, up to 3 for k <= 96), int32 counts and float32
+one lane for k <= 32, ceil(k / 32) at any larger k), int32 counts and float32
 weights, each [S, cap] on the mesh's device. Keys and counts are bit-equal
 to the JAX drain's. Run weights are sums of the run's window weights taken
 from a float64 prefix sum over the shard's sorted drain, differenced at
@@ -90,7 +90,7 @@ import numpy as np
 import torch
 
 from kmernator_tpu_torch.ops.kmer import (MASK32, SENTINEL_LANE,
-                                          SENTINEL_WORD, check_k,
+                                          SENTINEL_WORD,
                                           decode_lanes, encode_lanes,
                                           last_word_mask, nlanes, nwords,
                                           reverse_bases)
@@ -243,7 +243,6 @@ class MeshStreamingSpectrum:
     def __init__(self, mesh: Mesh, k: int, capacity: int,
                  drain_threshold: int = 0, max_capacity: int = 0,
                  capacity_factor: float = 0.0):
-        check_k(k)
         self.mesh = mesh
         self.device = mesh.device
         self.D = D = mesh.size

@@ -36,7 +36,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from kmernator_tpu_torch.ops.kmer import SENTINEL_WORD, check_k, nwords
+from kmernator_tpu_torch.ops.kmer import SENTINEL_WORD, nwords
 from kmernator_tpu_torch.parallel.device_spectrum import (
     count_batch, extract_canonical_cols, merge_tables, window_good)
 
@@ -49,7 +49,6 @@ class StreamingSpectrum:
 
     def __init__(self, k: int, capacity: int, min_weight: float = 0.10,
                  drain_threshold: int = 0, device="cuda"):
-        check_k(k)
         self.k = k
         self.capacity = capacity
         self.device = torch.device(device)

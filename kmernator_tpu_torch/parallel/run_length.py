@@ -4,30 +4,34 @@
 convention of kmernator_tpu/parallel/pallas_count.py: for keys sorted
 lexicographically by (hi, lo), the int32 count of good entries in each run
 of equal keys, written at the run's LAST element, 0 elsewhere.
-`run_length_sums(lanes, vals)` is the body both share, over keys of L = 1,
-2 or 3 int64 lanes (ops/kmer.py encode_lanes: one tensor for L = 1, or a
-list of L tensors, sorted lexicographically) and int32 values.
+`run_length_sums(lanes, vals)` is the body both share, over keys of any
+number L of int64 lanes (ops/kmer.py encode_lanes: one tensor for L = 1, or
+a list of L tensors, sorted lexicographically) and int32 values.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
 csrc/run_length.cu on the current stream; on a CPU tensor it takes the
 plain PyTorch version beside it. Nothing else chooses between them, and a
 failed build or launch raises. The kernel is one launch, a scan with
 decoupled look-back; `run_length_schedule_plain` is its tiling and carry in
-plain PyTorch.
+plain PyTorch. Keys of L = 1-3 lanes go to the kernel's unrolled instances
+with their lane pointers by value; keys of L >= 4 to its run-time instance,
+with the L lane pointers copied to the card on the launch's stream from
+pinned memory, so the host waits for nothing.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import List, Sequence, Union
 
 import torch
 
-from kmernator_tpu_torch.ops.kmer import MAX_LANES, encode_lane
+from kmernator_tpu_torch.ops.kmer import encode_lane
 
 Lanes = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 launches = 0          # kernel launches made by run_length_sums on CUDA tensors
-launches_by_lanes = {1: 0, 2: 0, 3: 0}   # the same, by the keys' lane count
+launches_by_lanes = collections.Counter()   # the same, by the keys' lanes
 
 _lib = None
 
@@ -44,6 +48,11 @@ def _kernel_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int64, ctypes.c_void_p]
         lib.kmtpu_run_length_sums.restype = ctypes.c_int
+        lib.kmtpu_run_length_sums_lanes.argtypes = [
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p]
+        lib.kmtpu_run_length_sums_lanes.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -126,12 +135,24 @@ def _run_length_sums_cuda(lanes: List[torch.Tensor],
     # the tile counter and one descriptor a tile, zeroed by the entry point
     scratch = torch.empty(1 + -(-n // lib.kmtpu_run_length_tile()),
                           dtype=torch.int64, device=dev)
+    ptrs = [x.data_ptr() for x in lanes]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ptrs = [x.data_ptr() for x in lanes] + [None] * (3 - len(lanes))
-        err = lib.kmtpu_run_length_sums(len(lanes), *ptrs, vals.data_ptr(),
-                                        out.data_ptr(), scratch.data_ptr(),
-                                        n, stream)
+        if len(lanes) <= 3:
+            err = lib.kmtpu_run_length_sums(
+                len(lanes), *(ptrs + [None] * (3 - len(ptrs))),
+                vals.data_ptr(), out.data_ptr(), scratch.data_ptr(), n,
+                stream)
+        else:
+            # the pinned block is not reused before the copy has run (the
+            # caching host allocator records it on the stream), and the
+            # device array is freed to the same stream after the launch
+            dptrs = torch.tensor(ptrs, dtype=torch.int64).pin_memory().to(
+                dev, non_blocking=True)
+            err = lib.kmtpu_run_length_sums_lanes(
+                len(lanes), dptrs.data_ptr(),
+                int(all(p % 16 == 0 for p in ptrs)), vals.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), n, stream)
     if err != 0:
         raise RuntimeError("run_length kernel launch failed: CUDA error %d"
                            % err)
@@ -141,14 +162,13 @@ def _run_length_sums_cuda(lanes: List[torch.Tensor],
 
 
 def run_length_sums(lanes: Lanes, vals: torch.Tensor) -> torch.Tensor:
-    """lanes: [N] int64, or a list of L <= 3 such lanes, sorted
+    """lanes: [N] int64, or a list of L >= 1 such lanes, sorted
     (lexicographically over the lanes) so equal keys are adjacent; vals [N]
     int32 -> [N] int32: the sum of vals over each run at the run's last
-    index, 0 elsewhere. Any N >= 0."""
+    index, 0 elsewhere. Any N >= 0 and any L >= 1."""
     lanes = _as_list(lanes)
-    if not 0 < len(lanes) <= MAX_LANES:
-        raise ValueError("run_length_sums takes 1 to %d key lanes, got %d"
-                         % (MAX_LANES, len(lanes)))
+    if not lanes:
+        raise ValueError("run_length_sums takes at least one key lane")
     for lane in lanes:
         if lane.dtype != torch.int64 or vals.dtype != torch.int32:
             raise TypeError("run_length_sums takes int64 lanes and int32 "

@@ -219,18 +219,31 @@ def test_contig_extender_byte_identical(tmp_path, inputs, dedup, capfd):
         assert int(removed(torch_log)[0]) > 0
 
 
+@pytest.mark.parametrize("mesh,k", [(1, 99), (2, 97)],
+                         ids=["mesh1-k99", "mesh2-k97"])
+def test_wide_k_mesh_byte_identical(tmp_path, inputs, mesh, k):
+    """k > 96 (four-lane keys) on --mesh 1 and --mesh 2: the contig file
+    byte-identical to the JAX app's at the same --mesh, on the
+    generate_metagenome reads (150 bp) with --minimum-coverage 2, under
+    which seeds grow at this k."""
+    fq, seeds = inputs["meta"]
+    common = ["--contig-file", seeds, "--minimum-coverage", "2",
+              "--mesh", str(mesh)] + FLAGS
+    jax_out, torch_out = str(tmp_path / "jax.fa"), str(tmp_path / "torch.fa")
+    assert jax_asm.run(common + ["--jax-platform", "cpu", "--out", jax_out,
+                                 str(k), fq]) == 0
+    assert torch_asm.run(["--device", "cpu"] + common
+                         + ["--out", torch_out, str(k), fq]) == 0
+    got = open(torch_out, "rb").read()
+    assert got == open(jax_out, "rb").read()
+    assert got.count(b">") == 6 and b"-l" in got
+
+
 def test_refusals(tmp_path, inputs):
-    """k > 96 on --mesh 2 and --mesh 1 is refused before the input is read
-    (--mesh N itself runs N shards); --device takes cuda or cpu, and cuda
-    without a visible GPU raises (nothing falls back to the CPU)."""
+    """--device takes cuda or cpu, and cuda without a visible GPU raises
+    (nothing falls back to the CPU)."""
     seeds = inputs["phix"][1]
     base = ["--contig-file", seeds, "--out", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="k=97"):
-        torch_asm.run(["--device", "cpu", "--mesh", "2"] + base
-                      + ["97", "missing.fq"])
-    with pytest.raises(NotImplementedError, match="k=97"):
-        torch_asm.run(["--device", "cpu", "--mesh", "1"] + base
-                      + ["97", "missing.fq"])
     for app in (torch_asm, torch_extender):
         with pytest.raises(ValueError, match="--device"):
             app.run(["--device", "tpu"] + base + ["31", "missing.fq"])

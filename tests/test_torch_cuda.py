@@ -13,6 +13,8 @@ float32). The variant purge's marks and tables are bit-equal. The hash insert
 places keys in an order that depends on timing, so it is held to its plain
 version through the order-free invariants of `check_invariants`, exactly.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -79,15 +81,20 @@ def _sorted_lane_keys(rng, n, L, n_keys):
             for j in range(L)]
 
 
+SIZES = [lambda t: 0, lambda t: 1, lambda t: t - 1, lambda t: t + 1,
+         lambda t: 3 * t + 5, lambda t: 5000 * t + 3]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [2, 3])
-@pytest.mark.parametrize("size", [lambda t: 0, lambda t: 1,
-                                  lambda t: t - 1, lambda t: t + 1,
-                                  lambda t: 3 * t + 5, lambda t: 5000 * t + 3])
+@pytest.mark.parametrize("L,size", [(L, size) for L in (2, 3, 4, 5)
+                                    for size in SIZES]
+                         + [(10, size) for size in SIZES[:5]])
 def test_kernel_lanes_match_plain(cuda_device, L, size):
-    """The L-lane instantiations: lengths around the tile and a grid far
-    beyond the resident CTAs; runs that split on the last lane only; the
-    same rows through the scalar path (an 8-byte-offset view)."""
+    """The L-lane instances (L = 2, 3 unrolled; L >= 4 the run-time lane
+    loop, its lane pointers in a device array): lengths around the tile
+    and a grid far beyond the resident CTAs; runs that split on the last
+    lane only; the same rows through the scalar path (an 8-byte-offset
+    view)."""
     N = size(_rl_tile())
     rng = np.random.default_rng(N + L)
     lanes = _sorted_lane_keys(rng, N + 1, L, max(N // 5, 1))
@@ -151,16 +158,18 @@ def test_no_host_sync_on_the_main_path(cuda_device):
     gen.manual_seed(1)
     lanes = torch.randint(-(1 << 62), 1 << 62, (5 * (1 << 17) + 3,),
                           generator=gen, device=cuda_device)
+    ones = torch.ones_like(lanes, dtype=torch.int32)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         s = ms.merge_sort_lanes(lanes)
-        out = rl.run_length_sums(s, torch.ones_like(s, dtype=torch.int32))
+        out = rl.run_length_sums(s, ones)
+        out4 = rl.run_length_sums([s >> 3, s >> 2, s >> 1, s], ones)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(s, torch.sort(lanes).values)
-    assert torch.equal(out, rl.run_length_sums_plain(
-        s, torch.ones_like(s, dtype=torch.int32)))
+    assert torch.equal(out, rl.run_length_sums_plain(s, ones))
+    assert torch.equal(out4, out)
 
 
 @pytest.mark.cuda
@@ -178,7 +187,7 @@ def test_count_batch_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W", [3, 4, 6])
+@pytest.mark.parametrize("W", [3, 4, 6, 7, 10])
 def test_count_batch_wide_matches_cpu(cuda_device, W):
     rng = np.random.default_rng(W)
     words = rng.integers(0, 4, (40000, W)).astype(np.int64)
@@ -194,7 +203,7 @@ def test_count_batch_wide_matches_cpu(cuda_device, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [31, 63, 95])
+@pytest.mark.parametrize("k", [31, 63, 95, 97, 145])
 def test_mesh_stream_matches_cpu(cuda_device, k):
     rng = np.random.default_rng(2 + k)
     B, L = 64, k + 69
@@ -231,7 +240,8 @@ def test_mesh_stream_matches_cpu(cuda_device, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,k", [(2, 31), (4, 31), (2, 63), (4, 95)])
+@pytest.mark.parametrize("D,k", [(2, 31), (4, 31), (2, 63), (4, 95),
+                                 (4, 127), (2, 145)])
 def test_mesh_stream_shards_match_cpu(cuda_device, D, k):
     """D shard tables on the card: the owner hash, the bucket scatter and
     the exchange route each batch as on the CPU; after every batch the
@@ -441,7 +451,8 @@ def _purge_table(rng, k, n_sources=40):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k,ed", [(21, 2), (31, 1), (33, 2), (95, 1)])
+@pytest.mark.parametrize("k,ed", [(21, 2), (31, 1), (33, 2), (95, 1),
+                                  (127, 1)])
 def test_purge_matches_cpu(cuda_device, k, ed):
     """set_table, purge_min_depth and purge_variants_mesh on the card: the
     purged count and the table bit-equal to the same on the CPU, with
@@ -671,7 +682,7 @@ def test_hash_bench_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [1, 2, 3])
+@pytest.mark.parametrize("L", [1, 2, 3, 4])
 def test_count_received_ext_matches_cpu(cuda_device, L):
     """MeraculousCounter's run sums on the card: 13 launches of the
     run-length kernel at L lanes, equal to the CPU's plain run sums."""
@@ -685,12 +696,12 @@ def test_count_received_ext_matches_cpu(cuda_device, L):
     el = torch.from_numpy(rng.integers(-1, 6, n).astype(np.int32))
     er = torch.from_numpy(rng.integers(-1, 6, n).astype(np.int32))
     want = count_received_ext(lanes, good, el, er, 2)
-    before = dict(rl.launches_by_lanes)
+    before = rl.launches_by_lanes[L]
     got = count_received_ext([x.to(cuda_device) for x in lanes],
                              good.to(cuda_device), el.to(cuda_device),
                              er.to(cuda_device), 2)
     torch.cuda.synchronize()
-    assert rl.launches_by_lanes[L] == before[L] + 13
+    assert rl.launches_by_lanes[L] == before + 13
     assert want[1].numel() > 1000
     for a, b in zip(got[0] + list(got[1:]), want[0] + list(want[1:])):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
@@ -752,11 +763,26 @@ def test_read_index_and_match_match_cpu(cuda_device, k):
         assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
 
 
+def _wide_reads(path, seed, n_reads=600, read_len=150, genome_bp=3000):
+    """Error-free reads of read_len bases from a random genome, phred 40;
+    returns the genome's bases."""
+    rng = np.random.default_rng(seed)
+    genome = np.frombuffer(b"ACGT", dtype=np.uint8)[
+        rng.integers(0, 4, genome_bp)].tobytes()
+    with open(path, "wb") as f:
+        for i in range(n_reads):
+            s = int(rng.integers(0, genome_bp - read_len))
+            f.write(b"@r%04d\n%s\n+\n%s\n"
+                    % (i, genome[s:s + read_len], b"I" * read_len))
+    return genome
+
+
 @pytest.mark.cuda
 def test_assembler_device_flag(cuda_device, tmp_path):
     """--device cuda with no visible GPU raises (a program with
-    CUDA_VISIBLE_DEVICES=""), and k > 96 is refused at --mesh 2 on the
-    card."""
+    CUDA_VISIBLE_DEVICES=""), and k = 97 (four-lane keys) runs at --mesh 2
+    on the card, its contigs byte-identical to --device cpu's, and some
+    seed grows."""
     import os
     import subprocess
     import sys
@@ -772,9 +798,47 @@ def test_assembler_device_flag(cuda_device, tmp_path):
          "--device", "cuda", "--mesh", "1"] + args + ["31", "missing.fq"],
         env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "no CUDA device" in proc.stderr
-    with pytest.raises(NotImplementedError, match="k=97"):
-        asm.run(["--device", "cuda", "--mesh", "2"] + args
-                + ["97", "missing.fq"])
+    fq = str(tmp_path / "r.fastq")
+    genome = _wide_reads(fq, 97)
+    with open(seeds, "wb") as f:
+        for i, s in enumerate((400, 1300, 2200)):
+            f.write(b">seed%d\n%s\n" % (i, genome[s:s + 120]))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        outs[dev] = str(tmp_path / ("%s.fa" % dev))
+        assert asm.run(["--device", dev, "--mesh", "2", "--contig-file",
+                        seeds, "--minimum-coverage", "2",
+                        "--max-iterations", "2", "--out", outs[dev], "97",
+                        fq]) == 0
+    got = open(outs["cuda"], "rb").read()
+    assert got == open(outs["cpu"], "rb").read() and b"-l" in got
+
+
+@pytest.mark.cuda
+def test_filter_reads_k97_on_the_card(cuda_device, tmp_path):
+    """FilterReads --mesh 1 at k = 97 (four-lane keys) on the card: every
+    output byte-identical to --device cpu's, the run-length kernel
+    launched at L = 4 only."""
+    from kmernator_tpu_torch.apps import filter_reads as app
+    fq = str(tmp_path / "r.fastq")
+    _wide_reads(fq, 98, n_reads=2000, genome_bp=20000)
+    flags = ["--mesh", "1", "--kmer-scoring-type", "MEDIAN",
+             "--mask-simple-repeats", "0", "--min-read-length", "25"]
+    before = dict(rl.launches_by_lanes)
+    for dev in ("cpu", "cuda"):
+        assert app.run(["--device", dev] + flags
+                       + ["--out", str(tmp_path / dev), "97", fq]) == 0
+    torch.cuda.synchronize()
+    grew = {L: n - before.get(L, 0) for L, n in rl.launches_by_lanes.items()
+            if n != before.get(L, 0)}
+    assert list(grew) == [4] and grew[4] >= 1
+    names = sorted(n[len("cpu"):] for n in os.listdir(tmp_path)
+                   if n.startswith("cpu"))
+    assert names
+    for name in names:
+        a = open(str(tmp_path / ("cpu" + name)), "rb").read()
+        b = open(str(tmp_path / ("cuda" + name)), "rb").read()
+        assert a == b and len(a) > 1000, name
 
 
 @pytest.mark.cuda

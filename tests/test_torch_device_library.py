@@ -139,7 +139,7 @@ def _state(k, seed, min_count=2):
 
 
 @pytest.mark.parametrize("k,min_count", [(16, 2), (21, 1), (31, 2), (33, 2),
-                                         (95, 3)])
+                                         (95, 3), (127, 2)])
 def test_count_and_score_bit_equal(k, min_count):
     """Fed JAX's good mask: the counts and (skeys, boundary, seg,
     seg_counts) bit-equal; the JAX `sidx` is not returned (its order
@@ -192,7 +192,7 @@ def test_jax_compact_spectrum_miscounts_count_and_score_state():
     assert np.array_equal(tc.numpy()[:len(u)], c)
 
 
-@pytest.mark.parametrize("k", [16, 31, 33, 95])
+@pytest.mark.parametrize("k", [16, 31, 33, 95, 127, 145])
 def test_merge_tables_bit_equal(k):
     """Two batch tables from the JAX count_batch (their sentinel padding
     included), merged by both; then a merge with an empty second table,

@@ -294,15 +294,33 @@ def test_distributed_one_process_in_memory(tmp_path):
     assert want and got == want and any(len(v) for v in got.values())
 
 
-def test_wide_k_refused(tmp_path):
-    """k = 97 is past the port's 3-lane keys on both --mesh 1 paths (k up
-    to 96 runs: tests/test_torch_wide_keys.py)."""
+@pytest.mark.parametrize("extra", [["--mesh", "1", "--mesh-batch", "64"],
+                                   ["--streaming", "--mesh", "1",
+                                    "--streaming-chunk-mb", "0.01",
+                                    "--mesh-batch", "64"]],
+                         ids=["in-memory", "streaming"])
+def test_wide_k_byte_identical(tmp_path, extra):
+    """k = 97 (four-lane keys) on both --mesh 1 paths: every output file
+    byte-identical to the JAX app's, on 320 reads of 150 bp from a 4 kb
+    genome (more k > 96 cases: tests/test_torch_wide_k.py)."""
+    rng = np.random.default_rng(97)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    genome = rng.integers(0, 4, 4000, dtype=np.uint8)
     inp = str(tmp_path / "in.fastq")
-    _graft_input(inp)
-    for extra in (["--mesh", "1"], ["--streaming", "--mesh", "1"]):
-        with pytest.raises(NotImplementedError, match="key layout"):
-            torch_app.run(["--device", "cpu"] + extra + ["--out",
-                           str(tmp_path / "o")] + BASE + ["97", inp])
+    with open(inp, "wb") as f:
+        for i in range(320):
+            s = int(rng.integers(0, len(genome) - 150))
+            f.write(b"@r%03d\n%s\n+\n%s\n"
+                    % (i, acgt[genome[s:s + 150]].tobytes(), b"H" * 150))
+    d = str(tmp_path)
+    assert jax_app.run(["--threads", "1"] + extra + ["--out",
+                        os.path.join(d, "jax")] + BASE + ["97", inp]) == 0
+    assert torch_app.run(["--device", "cpu"] + extra + ["--out",
+                          os.path.join(d, "torch")] + BASE
+                         + ["97", inp]) == 0
+    want, got = _outputs(d, "jax"), _outputs(d, "torch")
+    assert want and got == want
+    assert any(len(v) > 1000 for v in got.values())
 
 
 def test_seams_restored_and_cuda_without_card(tmp_path, monkeypatch):

@@ -59,15 +59,25 @@ def test_lane_order_equals_unsigned_lexicographic(W):
         assert np.array_equal(back[w].numpy(), words[:, w].astype(np.int64))
 
 
-def test_wide_k_refused():
-    """Keys hold at most 3 lanes: k = 96 passes, k = 97 is refused; one
-    lane holds at most 2 words."""
-    tk.check_k(32)
-    tk.check_k(33)
-    tk.check_k(96)
-    with pytest.raises(NotImplementedError, match="key layout"):
-        tk.check_k(97)
+def test_wide_k_keys_match_jax():
+    """k = 97 (W = 7 words, L = 4 lanes, an odd last word): the JAX
+    package's canonical k-mers of seeded reads, encoded into lanes and
+    back, are the same words, and a lexicographic sort of the lanes orders
+    them as the JAX words_less does. One lane still holds at most 2
+    words."""
+    k = 97
+    rng = np.random.default_rng(97)
+    codes = rng.integers(0, 4, 12 * 130).astype(np.uint8)
+    offsets = np.arange(0, 13 * 130, 130)
+    words = jk.extract_kmers_flat(codes, offsets, k)[0]
+    assert words.shape == (12 * 34, tk.nwords(k)) == (408, 7)
+    cols = [torch.from_numpy(words[:, w].astype(np.int64)) for w in range(7)]
+    lanes = tk.encode_lanes(cols)
+    assert len(lanes) == tk.nlanes(7) == 4
+    back = np.stack([c.numpy() for c in tk.decode_lanes(lanes, 7)], -1)
+    assert np.array_equal(back, words.astype(np.int64))
+    order = np.lexsort([lane.numpy() for lane in lanes[::-1]])
+    s = words[order]
+    assert not np.asarray(jk.words_less(np, s[1:], s[:-1])).any()
     with pytest.raises(NotImplementedError):
         tk.encode_lane([torch.zeros(1, dtype=torch.int64)] * 3)
-    with pytest.raises(NotImplementedError):
-        tk.encode_lanes([torch.zeros(1, dtype=torch.int64)] * 7)

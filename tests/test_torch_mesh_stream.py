@@ -156,16 +156,17 @@ def test_wire_packing_and_unpack():
 
 def test_one_device_only():
     """Every shard of a mesh lives on its one torch device: make_mesh(n)
-    is n shards for any n >= 1, whatever the number of cards."""
+    is n shards for any n >= 1, whatever the number of cards. A table
+    takes any k: ceil(k / 32) key lanes a shard."""
     assert make_mesh(2, "cpu").size == 2
     sp = ms.MeshStreamingSpectrum(make_mesh(4, "cpu"), 31, capacity=16)
     assert sp.table_counts.shape == (4, 16) and sp.capacity_factor == 2.0
     with pytest.raises(ValueError):
         make_mesh(0, "cpu")
-    # keys of at most 3 lanes: k = 96 is the widest table
-    ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 96, capacity=16)
-    with pytest.raises(NotImplementedError):
-        ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), 97, capacity=16)
+    for k, L in ((96, 3), (97, 4), (320, 10)):
+        sp = ms.MeshStreamingSpectrum(make_mesh(1, "cpu"), k, capacity=16)
+        assert sp.L == L and len(sp.table_lanes) == L
+        assert sp.table_lanes[0].shape == (1, 16)
 
 
 def _drain_counts(table_keys, table_counts, staged_keys, cap=8):

@@ -40,10 +40,12 @@ def _chain_spectrum(rng, k, n_sources=12, n_variants_per=6, n_noise=500):
     """The chain construction of tests/test_variant_purge.py
     (`_random_spectrum(chain=True)`), copied and widened to any k: big
     sources, hamming-1 variants of them (the first of each a source in
-    turn), and noise. Returns (keys [M, W] u32 sorted, counts [M] i64)."""
+    turn), and noise, from 64 random reads of max(80, k + 40) bases.
+    Returns (keys [M, W] u32 sorted, counts [M] i64)."""
     W = nwords(k)
-    codes = rng.integers(0, 4, (64, 80), dtype=np.uint8)
-    offs = np.arange(0, 65 * 80, 80)
+    L = max(80, k + 40)
+    codes = rng.integers(0, 4, (64, L), dtype=np.uint8)
+    offs = np.arange(0, 65 * L, L)
     canon, _, _, _ = extract_kmers_flat(codes.reshape(-1), offs, k)
     pool = np.unique(canon, axis=0)
     rng.shuffle(pool)
@@ -73,13 +75,14 @@ def _chain_spectrum(rng, k, n_sources=12, n_variants_per=6, n_noise=500):
     return keys[order], counts[order]
 
 
-@pytest.mark.parametrize("k", [21, 31, 33])
+@pytest.mark.parametrize("k", [21, 31, 33, 127])
 def test_shell_cols_matches_jax(k):
     rng = np.random.default_rng(k)
     W = nwords(k)
-    codes = rng.integers(0, 4, (8, 100), dtype=np.uint8)
+    L = max(100, k + 60)
+    codes = rng.integers(0, 4, (8, L), dtype=np.uint8)
     canon, _, _, _ = extract_kmers_flat(codes.reshape(-1),
-                                        np.arange(0, 900, 100), k)
+                                        np.arange(0, 9 * L, L), k)
     canon = canon[:200]
     want = jax_shell_cols([jnp.asarray(canon[:, w]) for w in range(W)], k)
     got = ms._shell_cols([torch.from_numpy(canon[:, w].astype(np.int64))
@@ -97,7 +100,8 @@ def test_shell_cols_matches_jax(k):
 
 
 @pytest.mark.parametrize("k,ed,chunk_rows", [
-    (21, 1, 0), (21, 2, 0), (21, 2, 5000), (33, 2, 0), (33, 1, 300)])
+    (21, 1, 0), (21, 2, 0), (21, 2, 5000), (33, 2, 0), (33, 1, 300),
+    (127, 1, 0), (127, 1, 2000)])
 def test_purge_matches_jax_mesh_and_host(k, ed, chunk_rows):
     """set_table then purge_variants_mesh at D = 1: the same purged count,
     keys, counts and weights as the JAX mesh purge on make_mesh(1) and the

@@ -1,5 +1,6 @@
 """k > 32 in kmernator_tpu_torch: keys of L = ceil(W/2) int64 lanes against
-the JAX package's W-word keys.
+the JAX package's W-word keys, up to k = 320 (L = 10; k > 96 on the apps
+and the other device paths: tests/test_torch_wide_k.py).
 
 Inputs are made from numpy seeds here. Tolerance: none for keys, counts,
 lookups and app output (bit- or byte-identical); the drain's weights as in
@@ -55,7 +56,8 @@ def _cols(words):
             for w in range(words.shape[1])]
 
 
-@pytest.mark.parametrize("k", [17, 33, 48, 63, 64, 95])
+@pytest.mark.parametrize("k", [17, 33, 48, 63, 64, 95, 97, 112, 113, 127,
+                               145, 320])
 def test_lanes_round_trip_and_order(k):
     """encode_lanes/decode_lanes round-trip the words; a lexicographic
     signed sort of the lanes orders the keys as pack_keys does."""
@@ -92,7 +94,7 @@ def _reference_w(words, good):
     return counts
 
 
-@pytest.mark.parametrize("k", [31, 33, 63, 95])
+@pytest.mark.parametrize("k", [31, 33, 63, 95, 97, 145, 320])
 def test_run_length_lanes_against_reference(k):
     """The L-lane plain version and the kernel's schedule model against the
     JAX numpy reference, generalised to W words (and the JAX reference
@@ -116,14 +118,20 @@ def test_run_length_lanes_against_reference(k):
 
 
 def test_run_length_lanes_refused():
+    """Lanes of unequal lengths, or none, are refused; four lanes and more
+    count (one run here, its sum at the last row)."""
     x = torch.zeros(4, dtype=torch.int64)
     ones = torch.ones(4, dtype=torch.int32)
-    with pytest.raises(ValueError, match="1 to 3 key lanes"):
-        rl.run_length_sums([x] * 4, ones)
     with pytest.raises(ValueError):
         rl.run_length_sums([x, x[:3]], ones)
+    with pytest.raises(ValueError):
+        rl.run_length_sums([x] * 4 + [x[:3]], ones)
+    with pytest.raises(ValueError, match="at least one key lane"):
+        rl.run_length_sums([], ones)
     assert torch.equal(rl.run_length_sums([x], ones),
                        rl.run_length_sums(x, ones))
+    for L in (4, 5, 10):
+        assert rl.run_length_sums([x] * L, ones).tolist() == [0, 0, 0, 4]
 
 
 def _reads(rng, B, L, genome_len=2000):
@@ -135,10 +143,10 @@ def _reads(rng, B, L, genome_len=2000):
     return codes, lengths
 
 
-@pytest.mark.parametrize("k", [33, 63])
+@pytest.mark.parametrize("k", [33, 63, 97, 127])
 def test_count_batch_wide_matches_jax(k):
     rng = np.random.default_rng(k)
-    codes, lengths = _reads(rng, 96, 120)
+    codes, lengths = _reads(rng, 96, max(120, k + 40))
     cols, _, valid = extract_canonical_cols(torch.from_numpy(codes),
                                             torch.from_numpy(lengths), k)
     cols = [c.reshape(-1) for c in cols]
@@ -155,7 +163,7 @@ def test_count_batch_wide_matches_jax(k):
         assert int(got[2]) == int(want[2]) > 0
 
 
-@pytest.mark.parametrize("k", [33, 95])
+@pytest.mark.parametrize("k", [33, 95, 97, 145])
 def test_mesh_drain_and_lookup_match_jax(k):
     """Drain after every batch, lookup and to_numpy_tables of the L-lane
     table against the JAX class on make_mesh(1)."""
