@@ -42,6 +42,11 @@ source in its package imports and in these places:
   ignored, as in JAX.
   Every engine takes any k, as the source does (the --mesh paths and the
   distributed engines: keys of ceil(k / 32) int64 lanes).
+- `run` is a run of the port's tracer (utils/timers.py), and the engines
+  record spans and counters where their work happens: traced when the
+  tracer is enabled or --debug is 1 or more, off otherwise. The source's
+  stage-timing lines, behind an environment variable, are these spans in
+  the fork pool's tasks, handed back to the parent's run.
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
 from kmernator_tpu_torch.utils.device import resolve_device
+from kmernator_tpu_torch.utils import timers
 from kmernator_tpu_torch.utils.logging import Log
 from kmernator_tpu_torch.utils.options import (
     GeneralOptions, KmerBaseOptions, KmerSpectrumOptions, ReadSelectorOptions,
@@ -364,14 +370,13 @@ def _append_blob(path: str, write_fn, written: set, parts: Dict):
     if pi is None:
         mode = "ab" if path in written else "wb"
         written.add(path)
-        with open(path, mode) as f:
-            write_fn(f)
-        return
-    tmp = "%s.part%d.tmp" % (real, pi)
-    mode = "ab" if (real, pi) in parts else "wb"
-    parts[(real, pi)] = tmp
-    with open(tmp, mode) as f:
+    else:
+        mode = "ab" if (real, pi) in parts else "wb"
+        path = parts[(real, pi)] = "%s.part%d.tmp" % (real, pi)
+    with open(path, mode) as f:
+        start = f.tell()
         write_fn(f)
+        timers.count("io.bytes_written", f.tell() - start)
 
 
 def _finalize_parts(written: set, parts: Dict):
@@ -758,41 +763,49 @@ def _streaming_mesh_count(chunks, input_files, k, min_quality, output_base,
     into the mesh_devices shard tables on the device; the host never holds
     more than one chunk."""
     from kmernator_tpu_torch.io.stream import estimate_raw_kmers
-    if capacity <= 0:
-        # the JAX package's per-device clamp: the estimate, at most 64M rows
-        est = estimate_raw_kmers(input_files, k)
-        capacity = min(max(int(np.ceil(est / mesh_devices)), 4096), 64 << 20)
-    sp = MeshStreamingSpectrum(make_mesh(mesh_devices, device), k,
-                               capacity=capacity)
-    raw = good_total = n_reads = 0
-    L = 0
-    for rs in chunks:
-        need = max(rs.max_length(), k)
-        if need > L:
-            L = -(-need // 32) * 32  # bucketed pad length
-        if batch_reads <= 0:
-            batch_reads = auto_mesh_batch(L, k)
-            Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
-                        % (batch_reads, L))
-        codes, good2d, lengths, weights2d, r, g = _chunk_padded(
-            rs, k, L, min_quality, output_base, min_kmer_quality,
-            subtract_keys, track_w)
-        raw += r
-        good_total += g
-        for s in range(0, codes.shape[0], batch_reads):
-            bw = weights2d[s:s + batch_reads] if weights2d is not None \
-                else None
-            sp.add_batch(_pad_rows(codes[s:s + batch_reads], batch_reads),
-                         _pad_rows(good2d[s:s + batch_reads], batch_reads),
-                         _pad_rows(lengths[s:s + batch_reads], batch_reads),
-                         weights2d=None if bw is None
-                         else _pad_rows(bw, batch_reads))
-        n_reads += rs.n
-    if sp.purged_singletons:
-        Log.warn("mesh streaming purged %d singletons under capacity "
-                 "pressure (counts may undercount by 1); raise "
-                 "--streaming-parts capacity" % sp.purged_singletons)
-    spectrum = sp.to_host_spectrum(min_depth=1)
+    with timers.span("apps.count_pass"):
+        if capacity <= 0:
+            # the JAX package's per-device clamp: the estimate, at most 64M
+            # rows
+            est = estimate_raw_kmers(input_files, k)
+            capacity = min(max(int(np.ceil(est / mesh_devices)), 4096),
+                           64 << 20)
+        sp = MeshStreamingSpectrum(make_mesh(mesh_devices, device), k,
+                                   capacity=capacity)
+        raw = good_total = n_reads = 0
+        L = 0
+        for rs in chunks:
+            need = max(rs.max_length(), k)
+            if need > L:
+                L = -(-need // 32) * 32  # bucketed pad length
+            if batch_reads <= 0:
+                batch_reads = auto_mesh_batch(L, k)
+                Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
+                            % (batch_reads, L))
+            with timers.span("apps.prepare"):
+                codes, good2d, lengths, weights2d, r, g = _chunk_padded(
+                    rs, k, L, min_quality, output_base, min_kmer_quality,
+                    subtract_keys, track_w)
+            timers.count("apps.windows_good", g)
+            raw += r
+            good_total += g
+            for s in range(0, codes.shape[0], batch_reads):
+                bw = weights2d[s:s + batch_reads] if weights2d is not None \
+                    else None
+                with timers.span("table.add"):
+                    sp.add_batch(
+                        _pad_rows(codes[s:s + batch_reads], batch_reads),
+                        _pad_rows(good2d[s:s + batch_reads], batch_reads),
+                        _pad_rows(lengths[s:s + batch_reads], batch_reads),
+                        weights2d=None if bw is None
+                        else _pad_rows(bw, batch_reads))
+            n_reads += rs.n
+        if sp.purged_singletons:
+            Log.warn("mesh streaming purged %d singletons under capacity "
+                     "pressure (counts may undercount by 1); raise "
+                     "--streaming-parts capacity" % sp.purged_singletons)
+        with timers.span("table.to_host"):
+            spectrum = sp.to_host_spectrum(min_depth=1)
     spectrum.raw_kmers = raw
     spectrum.raw_good_kmers = good_total
     Log.verbose(1, "mesh-streamed %d reads on %s; spectrum: %d unique kmers"
@@ -853,35 +866,40 @@ def _par_load_chunk(args, replay: bool):
     c = _PAR
     ci = args[0]
     cp = _rs_cache_path(ci)
-    if replay and cp and os.path.exists(cp):
-        rs = _rs_cache_read(cp)
-    else:
-        if c.get("paired_paths"):
-            ci, s1, e1, s2, e2 = args
-            p1, p2 = c["paired_paths"]
-            rs = read_chunk_paired(p1, p2, (s1, e1, s2, e2), c["base"],
-                                   c["comment_stored"])
+    with timers.span("io.parse"):
+        if replay and cp and os.path.exists(cp):
+            rs = _rs_cache_read(cp)
         else:
-            ci, fi, path, s, e = args
-            rs = read_chunk(path, s, e, c["base"], c["comment_stored"], fi)
-        # pairs identify BEFORE the filter (ref: FilterReads.cpp:103 then
-        # :114): remnant reads the filter appends never join rs.pairs, so
-        # the pair-driven picks skip them (they feed the spectrum only)
-        rs.identify_pairs()
-        if not replay and cp:
-            _rs_cache_write(cp, rs)
+            if c.get("paired_paths"):
+                ci, s1, e1, s2, e2 = args
+                p1, p2 = c["paired_paths"]
+                rs = read_chunk_paired(p1, p2, (s1, e1, s2, e2), c["base"],
+                                       c["comment_stored"])
+            else:
+                ci, fi, path, s, e = args
+                rs = read_chunk(path, s, e, c["base"], c["comment_stored"],
+                                fi)
+            # pairs identify BEFORE the filter (ref: FilterReads.cpp:103
+            # then :114): remnant reads the filter appends never join
+            # rs.pairs, so the pair-driven picks skip them (they feed the
+            # spectrum only)
+            rs.identify_pairs()
+            if not replay and cp:
+                _rs_cache_write(cp, rs)
     o = None
     if c["filt"] is not None:
-        sp = _par_scan_path(ci)
-        pre = None
-        if replay and sp and os.path.exists(sp):
-            with np.load(sp) as z:
-                pre = tuple(z[f] for f in
-                            ("sv", "smn", "smx", "sso", "ssl", "sph"))
-        o = apply_artifact_filter(rs, c["filt"], precomputed=pre)
-        if not replay and sp:
-            sv, smn, smx, sso, ssl, sph = o.scan
-            np.savez(sp, sv=sv, smn=smn, smx=smx, sso=sso, ssl=ssl, sph=sph)
+        with timers.span("ops.artifact"):
+            sp = _par_scan_path(ci)
+            pre = None
+            if replay and sp and os.path.exists(sp):
+                with np.load(sp) as z:
+                    pre = tuple(z[f] for f in
+                                ("sv", "smn", "smx", "sso", "ssl", "sph"))
+            o = apply_artifact_filter(rs, c["filt"], precomputed=pre)
+            if not replay and sp:
+                sv, smn, smx, sso, ssl, sph = o.scan
+                np.savez(sp, sv=sv, smn=smn, smx=smx, sso=sso, ssl=ssl,
+                         sph=sph)
     return rs, o
 
 
@@ -963,48 +981,43 @@ def _p2_spectrum():
 def _par_pass1(args):
     """Count one chunk: into the SHARED CAS table when one is active
     (remainder past its load stop diverts to the private spill), else
-    into the process-persistent aggregated spill."""
-    import time as _t
+    into the process-persistent aggregated spill. Returns (reads, raw
+    windows, good windows, key dtype, splitters, the task's spans)."""
+    mark = timers.task_mark()
+    counts = _par_count_chunk(args)
+    return counts + (timers.task_spans(mark),)
+
+
+def _par_count_chunk(args):
     c = _PAR
-    t0 = _t.perf_counter()
     rs, _ = _par_load_chunk(args, replay=False)
-    t1 = _t.perf_counter()
     if c["k"] <= 0:
         return rs.n, 0, 0, None, None
-    keys, good, w = _chunk_observations(
-        rs, c["k"], c["min_quality"], c["output_base"], c["min_kq"],
-        c["subtract_keys"], want_weights=c["track_w"])
-    t2 = _t.perf_counter()
-    shct = c.get("shct")
-    if shct is not None:
-        from kmernator_tpu_torch.io.native import compact_good
-        got = compact_good(keys, good, None, _CG_BUFS[0], _CG_BUFS[1])
-        if got is not None:
-            gk, _, _CG_BUFS[0], _CG_BUFS[1] = got
-        else:
-            gk = keys[good]
-        consumed = shct.insert(gk)
-        if consumed < len(gk):
-            sc = _worker_spill()
-            rem = np.ascontiguousarray(gk[consumed:])
-            sc.add(rem, np.ones(len(rem), bool))
-            sc.raw_kmers -= len(rem)       # raw/good tallied below, once
-            sc.raw_good_kmers -= len(rem)
-        if os.environ.get("KMTPU_STAGE_TIMES"):
-            Log.debug(1, "p1 stages: load %.3f observe %.3f spill %.3f"
-                      % (t1 - t0, t2 - t1, _t.perf_counter() - t2))
-        return (rs.n, len(keys), len(gk), np.dtype(np.uint64),
-                c.get("splitters"))
-    sc = _worker_spill()
-    r0, g0 = sc.raw_kmers, sc.raw_good_kmers
-    sc.add(keys, good, w)
-    if os.environ.get("KMTPU_STAGE_TIMES"):
-        import resource as _res
-        ru = _res.getrusage(_res.RUSAGE_SELF)
-        Log.debug(1, "p1 stages: load %.3f observe %.3f spill %.3f "
-                  "[pid %d cpu u%.2f s%.2f]"
-                  % (t1 - t0, t2 - t1, _t.perf_counter() - t2,
-                     os.getpid(), ru.ru_utime, ru.ru_stime))
+    with timers.span("apps.prepare"):
+        keys, good, w = _chunk_observations(
+            rs, c["k"], c["min_quality"], c["output_base"], c["min_kq"],
+            c["subtract_keys"], want_weights=c["track_w"])
+    with timers.span("table.spill"):
+        shct = c.get("shct")
+        if shct is not None:
+            from kmernator_tpu_torch.io.native import compact_good
+            got = compact_good(keys, good, None, _CG_BUFS[0], _CG_BUFS[1])
+            if got is not None:
+                gk, _, _CG_BUFS[0], _CG_BUFS[1] = got
+            else:
+                gk = keys[good]
+            consumed = shct.insert(gk)
+            if consumed < len(gk):
+                sc = _worker_spill()
+                rem = np.ascontiguousarray(gk[consumed:])
+                sc.add(rem, np.ones(len(rem), bool))
+                sc.raw_kmers -= len(rem)       # raw/good tallied below, once
+                sc.raw_good_kmers -= len(rem)
+            return (rs.n, len(keys), len(gk), np.dtype(np.uint64),
+                    c.get("splitters"))
+        sc = _worker_spill()
+        r0, g0 = sc.raw_kmers, sc.raw_good_kmers
+        sc.add(keys, good, w)
     return (rs.n, sc.raw_kmers - r0, sc.raw_good_kmers - g0,
             sc.key_dtype, sc.splitters)
 
@@ -1036,49 +1049,45 @@ def _iter_pool(it, n_tasks: int, what: str, timeout_s: float = 0.0):
 
 
 def _par_pass2(args):
-    """Score one chunk against the finalized spectrum -> {path: bytes}."""
-    import time as _t
+    """Score one chunk against the finalized spectrum -> ({path: bytes},
+    or {path: the tmpfs file holding them} with a p2_dir; the task's
+    spans)."""
+    mark = timers.task_mark()
+    outputs = _par_score_chunk(args)
+    return outputs, timers.task_spans(mark)
+
+
+def _par_score_chunk(args):
     c = _PAR
-    t0 = _t.perf_counter()
     rs, o = _par_load_chunk(args, replay=True)
-    t1 = _t.perf_counter()
-    t2 = _t.perf_counter()
-    if c["k"] > 0:
-        counts, w_off = window_count_lookup(rs, _p2_spectrum(), c["k"])
-        t3 = _t.perf_counter()
-        trims = score_and_trim(rs, counts, w_off, c["k"],
-                               float(c["sopts"].min_depth),
-                               c["ropts"].kmer_scoring_type,
-                               first_markup_nor_x(rs),
-                               c["ropts"].bimodal_sigmas)
-    else:
-        t3 = _t.perf_counter()
-        trims = _trim_by_markup(rs)
-    t4 = _t.perf_counter()
-    outputs = select_reads(rs, trims, _p2_spectrum(), c["opts"], c["kopts"],
-                           c["sopts"], c["ropts"], c["opts"].input_file,
-                           paired_parts=bool(c.get("paired_merged")))
-    if o is not None:
-        outputs.update(divert_blobs(rs, o, c["opts"], c["aopts"]))
-    t5 = _t.perf_counter()
-    if os.environ.get("KMTPU_STAGE_TIMES"):
-        import resource as _res
-        ru = _res.getrusage(_res.RUSAGE_SELF)
-        Log.debug(1, "p2 stages: load %.3f pairs %.3f lookup %.3f "
-                  "trim %.3f select %.3f [pid %d cpu u%.2f s%.2f]"
-                  % (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4,
-                     os.getpid(), ru.ru_utime, ru.ru_stime))
+    with timers.span("apps.score"):
+        if c["k"] > 0:
+            counts, w_off = window_count_lookup(rs, _p2_spectrum(), c["k"])
+            trims = score_and_trim(rs, counts, w_off, c["k"],
+                                   float(c["sopts"].min_depth),
+                                   c["ropts"].kmer_scoring_type,
+                                   first_markup_nor_x(rs),
+                                   c["ropts"].bimodal_sigmas)
+        else:
+            trims = _trim_by_markup(rs)
+        outputs = select_reads(rs, trims, _p2_spectrum(), c["opts"],
+                               c["kopts"], c["sopts"], c["ropts"],
+                               c["opts"].input_file,
+                               paired_parts=bool(c.get("paired_merged")))
+        if o is not None:
+            outputs.update(divert_blobs(rs, o, c["opts"], c["aopts"]))
     d = c.get("p2_dir")
     if not d:
         return outputs
     # hand blobs to the parent as tmpfs files, not pool pickle IPC — the
     # pipe would copy the entire output twice more per chunk
     manifest = {}
-    for j, (path, blob) in enumerate(outputs.items()):
-        fn = os.path.join(d, "p2-%06d-%d.bin" % (args[0], j))
-        with open(fn, "wb") as f:
-            f.write(blob)
-        manifest[path] = fn
+    with timers.span("io.output"):
+        for j, (path, blob) in enumerate(outputs.items()):
+            fn = os.path.join(d, "p2-%06d-%d.bin" % (args[0], j))
+            with open(fn, "wb") as f:
+                f.write(blob)
+            manifest[path] = fn
     return manifest
 
 
@@ -1248,7 +1257,8 @@ def _run_streaming_parallel(opts, kopts, sopts, ropts, aopts, fopts, filt,
         wi = 0
         splitters = _sample_splitters(rs0, k, num_parts)
         while splitters is None and wi < len(work):
-            rn, rk, rgk, kd, splitters = _par_pass1(work[wi])
+            rn, rk, rgk, kd, splitters, spans = _par_pass1(work[wi])
+            timers.absorb(spans)
             n_reads += rn
             raw += rk
             good += rgk
@@ -1321,109 +1331,117 @@ def _run_streaming_parallel(opts, kopts, sopts, ropts, aopts, fopts, filt,
                 and os.environ.get("KMTPU_RS_CACHE", "0") == "1"
         except OSError:
             _PAR["rs_cache"] = False
-    import time as _time
-    t_p1 = _time.perf_counter()
     Log.debug(1, "pass1 pool start (head done)")
     with ctx.Pool(threads) as pool:
         if k > 0:
-            for rn, rk, rgk, kd, _ in _iter_pool(
-                    pool.imap_unordered(_par_pass1, work[wi:], chunksize=1),
-                    len(work) - wi, "pass1"):
-                n_reads += rn
-                raw += rk
-                good += rgk
-                if key_dt is None:
-                    key_dt = kd
-            # every worker (and the parent, if it seeded chunks) flushes
-            # its aggregated spill before the parts are counted
-            for _ in pool.imap_unordered(_par_flush_spill, range(threads),
-                                         chunksize=1):
-                pass
-            _flush_worker_spill()
-            if shct is not None:
-                # export the shared table into the part files (exact:
-                # merges with any pressure-spilled partials at count)
-                _native.set_default_threads(threads)
-                s_ko, s_co = shct.export()
-                _native.set_default_threads(1)
-                from kmernator_tpu_torch.parallel.spill import append_agg_records
-                append_agg_records(spill_dir, num_parts, splitters, "shct",
-                                   s_ko, s_co)
-                shct.close()
-                _PAR["shct"] = None
-            t_chunks = _time.perf_counter()
-            # singletons are only ever consulted by the histogram /
-            # size-history outputs; when neither is requested, finalize
-            # straight to the >= 2 table the selector uses (the purge in
-            # _spectrum_outputs_and_purge then keeps it unchanged)
-            fin_depth = 1 if (fopts.histogram_file
-                              or fopts.size_history_file) else 2
-            spectrum = count_spill_parts(
-                spill_dir, num_parts, k, key_dt, track_w, fin_depth, raw,
-                good, pool=pool)
-            t_fin = _time.perf_counter()
+            with timers.timed("apps.count_pass") as p1:
+                for rn, rk, rgk, kd, _, spans in _iter_pool(
+                        pool.imap_unordered(_par_pass1, work[wi:],
+                                            chunksize=1),
+                        len(work) - wi, "pass1"):
+                    timers.absorb(spans)
+                    n_reads += rn
+                    raw += rk
+                    good += rgk
+                    if key_dt is None:
+                        key_dt = kd
+                # every worker (and the parent, if it seeded chunks)
+                # flushes its aggregated spill before the parts are counted
+                for _ in pool.imap_unordered(_par_flush_spill,
+                                             range(threads), chunksize=1):
+                    pass
+                _flush_worker_spill()
+                if shct is not None:
+                    # export the shared table into the part files (exact:
+                    # merges with any pressure-spilled partials at count)
+                    _native.set_default_threads(threads)
+                    s_ko, s_co = shct.export()
+                    _native.set_default_threads(1)
+                    from kmernator_tpu_torch.parallel.spill import \
+                        append_agg_records
+                    append_agg_records(spill_dir, num_parts, splitters,
+                                       "shct", s_ko, s_co)
+                    shct.close()
+                    _PAR["shct"] = None
+                # singletons are only ever consulted by the histogram /
+                # size-history outputs; when neither is requested, finalize
+                # straight to the >= 2 table the selector uses (the purge in
+                # _spectrum_outputs_and_purge then keeps it unchanged)
+                fin_depth = 1 if (fopts.histogram_file
+                                  or fopts.size_history_file) else 2
+                with timers.timed("table.finalize") as fin:
+                    spectrum = count_spill_parts(
+                        spill_dir, num_parts, k, key_dt, track_w, fin_depth,
+                        raw, good, pool=pool)
             Log.verbose(1, "streamed %d reads through %d spill parts on %d "
                         "workers; spectrum: %d unique kmers; chunks %.2fs "
                         "finalize %.2fs; %s"
                         % (n_reads, num_parts, threads, spectrum.n_unique,
-                           t_chunks - t_p1, t_fin - t_chunks,
+                           p1.seconds - fin.seconds, fin.seconds,
                            get_memory_usage()))
-            _spectrum_outputs_and_purge(spectrum, sopts, fopts)
+            with timers.span("apps.purge"):
+                _spectrum_outputs_and_purge(spectrum, sopts, fopts)
 
         if not opts.output_file:
             return 0
-        t_g0 = _time.perf_counter()
-        if spectrum is not None:
-            # purged spectrum -> read-only tmpfs memmaps for the live
-            # workers; the lookup hash is built ONCE here (multithreaded)
-            # and shared via its slots file
-            np.save(os.path.join(p2_dir, "spec_keys.npy"), spectrum.keys)
-            np.save(os.path.join(p2_dir, "spec_counts.npy"),
-                    spectrum.counts)
-            if len(spectrum.keys) >= 4096 \
-                    and spectrum.keys.dtype == np.uint64:
-                # build the lookup table DIRECTLY into a tmpfs-backed
-                # memmap (the workers' read-only mapping) — no second
-                # 2*cap*16 B copy through np.save
-                from kmernator_tpu_torch.io.native import HashTable
-                _native.set_default_threads(os.cpu_count() or 1)
-                try:
-                    m = len(spectrum.keys)
-                    cap = 1
-                    while cap < max(2 * m, 16):
-                        cap <<= 1
-                    slots = np.lib.format.open_memmap(
-                        os.path.join(p2_dir, "spec_slots.npy"), mode="w+",
-                        dtype=np.uint64, shape=(2 * cap,))
-                    HashTable.build_into(spectrum.keys, spectrum.counts,
-                                         slots)
-                    slots.flush()
-                    del slots
-                except RuntimeError:
-                    pass
-                _native.set_default_threads(1)
-            with open(os.path.join(p2_dir, "spec_ready"), "w") as f:
-                f.write("%d" % k)
-        t_g1 = _time.perf_counter()
-        written = set()
-        parts: Dict = {}
-        for outputs in _iter_pool(pool.imap(_par_pass2, work, chunksize=1),
-                                  len(work), "pass2"):
-            for path, src_fn in outputs.items():
-                def _sendfile(f, src_fn=src_fn):
-                    with open(src_fn, "rb") as src:
+        with timers.span("apps.output_pass"):
+            if spectrum is not None:
+                with timers.span("table.hash"):
+                    # purged spectrum -> read-only tmpfs memmaps for the
+                    # live workers; the lookup hash is built ONCE here
+                    # (multithreaded) and shared via its slots file
+                    np.save(os.path.join(p2_dir, "spec_keys.npy"),
+                            spectrum.keys)
+                    np.save(os.path.join(p2_dir, "spec_counts.npy"),
+                            spectrum.counts)
+                    if len(spectrum.keys) >= 4096 \
+                            and spectrum.keys.dtype == np.uint64:
+                        # build the lookup table DIRECTLY into a
+                        # tmpfs-backed memmap (the workers' read-only
+                        # mapping) — no second 2*cap*16 B copy through
+                        # np.save
+                        from kmernator_tpu_torch.io.native import HashTable
+                        _native.set_default_threads(os.cpu_count() or 1)
                         try:
-                            os.sendfile(f.fileno(), src.fileno(), 0,
+                            m = len(spectrum.keys)
+                            cap = 1
+                            while cap < max(2 * m, 16):
+                                cap <<= 1
+                            slots = np.lib.format.open_memmap(
+                                os.path.join(p2_dir, "spec_slots.npy"),
+                                mode="w+", dtype=np.uint64,
+                                shape=(2 * cap,))
+                            HashTable.build_into(spectrum.keys,
+                                                 spectrum.counts, slots)
+                            slots.flush()
+                            del slots
+                        except RuntimeError:
+                            pass
+                        _native.set_default_threads(1)
+                    with open(os.path.join(p2_dir, "spec_ready"), "w") as f:
+                        f.write("%d" % k)
+            written = set()
+            parts: Dict = {}
+            for outputs, spans in _iter_pool(
+                    pool.imap(_par_pass2, work, chunksize=1), len(work),
+                    "pass2"):
+                timers.absorb(spans)
+                with timers.span("io.output"):
+                    for path, src_fn in outputs.items():
+                        def _sendfile(f, src_fn=src_fn):
+                            with open(src_fn, "rb") as src:
+                                try:
+                                    os.sendfile(
+                                        f.fileno(), src.fileno(), 0,
                                         os.fstat(src.fileno()).st_size)
-                        except OSError:
-                            f.write(src.read())
-                _append_blob(path, _sendfile, written, parts)
-                os.unlink(src_fn)
-        _finalize_parts(written, parts)
+                                except OSError:
+                                    f.write(src.read())
+                        _append_blob(path, _sendfile, written, parts)
+                        os.unlink(src_fn)
+            with timers.span("io.output"):
+                _finalize_parts(written, parts)
     import shutil
     shutil.rmtree(p2_dir, ignore_errors=True)
-    Log.debug(1, "pass2: hash %.2fs score+write %.2fs"
-              % (t_g1 - t_g0, _time.perf_counter() - t_g1))
     for path in written:
         Log.verbose(1, "wrote %s (%d bytes)" % (path, os.path.getsize(path)))
     return 0
@@ -1521,26 +1539,35 @@ def run_streaming(opts, kopts, sopts, ropts, aopts, fopts, chunk_mb: float,
                                opts.keep_read_comment)
 
     def chunks(replay: bool = False):
-        for ci, rs in enumerate(_chunk_source()):
+        source = enumerate(_chunk_source())
+        while True:
+            with timers.span("io.parse"):
+                ci, rs = next(source, (None, None))
+                if rs is None:
+                    return
+                # pairs identify BEFORE the filter (the reference's order,
+                # FilterReads.cpp:103 then :114): remnant reads the filter
+                # appends never join rs.pairs, so the pair-driven picks
+                # skip them (they feed the spectrum only)
+                rs.identify_pairs()
+            if not replay or k <= 0:   # the input's reads, counted once
+                timers.count("io.reads", rs.n)
+                timers.count("io.bases", len(rs.seq))
             last_outcome.pop("o", None)
-            # pairs identify BEFORE the filter (the reference's order,
-            # FilterReads.cpp:103 then :114): remnant reads the filter
-            # appends never join rs.pairs, so the pair-driven picks skip
-            # them (they feed the spectrum only)
-            rs.identify_pairs()
             if filt is not None:
-                pre = None
-                path = (os.path.join(scan_dir, "%06d.npz" % ci)
-                        if scan_dir else None)
-                if replay and path and os.path.exists(path):
-                    with np.load(path) as z:
-                        pre = tuple(z[f] for f in
-                                    ("sv", "smn", "smx", "sso", "ssl", "sph"))
-                o = apply_artifact_filter(rs, filt, precomputed=pre)
-                if not replay and path:
-                    sv, smn, smx, sso, ssl, sph = o.scan
-                    np.savez(path, sv=sv, smn=smn, smx=smx, sso=sso,
-                             ssl=ssl, sph=sph)
+                with timers.span("ops.artifact"):
+                    pre = None
+                    path = (os.path.join(scan_dir, "%06d.npz" % ci)
+                            if scan_dir else None)
+                    if replay and path and os.path.exists(path):
+                        with np.load(path) as z:
+                            pre = tuple(z[f] for f in ("sv", "smn", "smx",
+                                                       "sso", "ssl", "sph"))
+                    o = apply_artifact_filter(rs, filt, precomputed=pre)
+                    if not replay and path:
+                        sv, smn, smx, sso, ssl, sph = o.scan
+                        np.savez(path, sv=sv, smn=smn, smx=smx, sso=sso,
+                                 ssl=ssl, sph=sph)
                 last_outcome["o"] = o
             yield rs
 
@@ -1566,44 +1593,58 @@ def run_streaming(opts, kopts, sopts, ropts, aopts, fopts, chunk_mb: float,
             num_parts = capacity if capacity > 0 else auto_parts(est)
             sc = make_spill_counter(k, num_parts, track_weights=track_w)
             n_reads = 0
-            for rs in chunks():
-                keys, good, w = _chunk_observations(
-                    rs, k, opts.min_quality_score,
-                    opts.fastq_output_base_quality, sopts.min_kmer_quality,
-                    subtract_keys, want_weights=track_w)
-                sc.add(keys, good, w)
-                n_reads += rs.n
-                Log.debug(1, "chunk %d reads; %s" % (rs.n, get_memory_usage()))
-            fin_depth = 1 if (fopts.histogram_file
-                              or fopts.size_history_file) else 2
-            spectrum = sc.finalize(min_depth=fin_depth)
+            with timers.span("apps.count_pass"):
+                for rs in chunks():
+                    with timers.span("apps.prepare"):
+                        keys, good, w = _chunk_observations(
+                            rs, k, opts.min_quality_score,
+                            opts.fastq_output_base_quality,
+                            sopts.min_kmer_quality, subtract_keys,
+                            want_weights=track_w)
+                    with timers.span("table.spill"):
+                        sc.add(keys, good, w)
+                    n_reads += rs.n
+                    Log.debug(1, "chunk %d reads; %s"
+                              % (rs.n, get_memory_usage()))
+                fin_depth = 1 if (fopts.histogram_file
+                                  or fopts.size_history_file) else 2
+                with timers.span("table.finalize"):
+                    spectrum = sc.finalize(min_depth=fin_depth)
             Log.verbose(1, "streamed %d reads through %d spill parts; "
                         "spectrum: %d unique kmers"
                         % (n_reads, num_parts, spectrum.n_unique))
-        _spectrum_outputs_and_purge(spectrum, sopts, fopts)
+        with timers.span("apps.purge"):
+            _spectrum_outputs_and_purge(spectrum, sopts, fopts)
 
     if not opts.output_file:
         return 0
     written = set()
     parts: Dict = {}
-    for rs in chunks(replay=True):
-        if k > 0:
-            counts, w_off = window_count_lookup(rs, spectrum, k)
-            trims = score_and_trim(rs, counts, w_off, k,
-                                   float(sopts.min_depth),
-                                   ropts.kmer_scoring_type,
-                                   first_markup_nor_x(rs),
-                                   ropts.bimodal_sigmas)
-        else:
-            trims = _trim_by_markup(rs)
-        outputs = select_reads(
-            rs, trims, spectrum, opts, kopts, sopts, ropts, opts.input_file,
-            paired_parts=paired_stream and not ropts.separate_outputs)
-        if "o" in last_outcome:
-            outputs.update(divert_blobs(rs, last_outcome["o"], opts, aopts))
-        for path, data in outputs.items():
-            _append_blob(path, lambda f, d=data: f.write(d), written, parts)
-    _finalize_parts(written, parts)
+    with timers.span("apps.output_pass"):
+        for rs in chunks(replay=True):
+            with timers.span("apps.score"):
+                if k > 0:
+                    counts, w_off = window_count_lookup(rs, spectrum, k)
+                    trims = score_and_trim(rs, counts, w_off, k,
+                                           float(sopts.min_depth),
+                                           ropts.kmer_scoring_type,
+                                           first_markup_nor_x(rs),
+                                           ropts.bimodal_sigmas)
+                else:
+                    trims = _trim_by_markup(rs)
+                outputs = select_reads(
+                    rs, trims, spectrum, opts, kopts, sopts, ropts,
+                    opts.input_file,
+                    paired_parts=paired_stream and not ropts.separate_outputs)
+                if "o" in last_outcome:
+                    outputs.update(divert_blobs(rs, last_outcome["o"], opts,
+                                                aopts))
+            with timers.span("io.output"):
+                for path, data in outputs.items():
+                    _append_blob(path, lambda f, d=data: f.write(d), written,
+                                 parts)
+        with timers.span("io.output"):
+            _finalize_parts(written, parts)
     for path in written:
         Log.verbose(1, "wrote %s (%d bytes)" % (path, os.path.getsize(path)))
     return 0
@@ -1960,9 +2001,12 @@ def run_streaming_distributed(opts, kopts, sopts, ropts, aopts, fopts,
 
 
 
+@timers.traced_run
 def run(argv: List[str]) -> int:
     """FilterReads. The JAX app's arguments, with --device cuda|cpu
-    (default cuda) in place of --jax-platform."""
+    (default cuda) in place of --jax-platform. A run of the tracer
+    (utils/timers.py): traced when the tracer is enabled or --debug is 1
+    or more, which logs its spans and counters at its end."""
     argv = list(argv)
     device_name = "cuda"
     if "--device" in argv:
@@ -2025,6 +2069,7 @@ def run(argv: List[str]) -> int:
         Log.set_log_file(opts.log_file)
     Log.debug_level = opts.debug
     Log.gathered = opts.gathered_logs > 0
+    timers.begin_run(opts.debug)
 
     if not opts.input_file:
         Log.error("Please specify at least one input file")
@@ -2275,19 +2320,13 @@ def _trim_by_markup(rs: ReadSet) -> ReadTrims:
 
 
 def main():
-    import time as _t
-    t0 = _t.perf_counter()
     rc = run(sys.argv[1:])
-    t1 = _t.perf_counter()
     # fast exit: temp teardown runs explicitly, then skip interpreter
     # finalization (GC of multi-GB numpy heaps cost ~0.3 s per run as
     # measured on the JAX package's development host, a CPU machine,
     # not the H100's host)
     from kmernator_tpu_torch.utils import cleanup
     cleanup._flush()
-    if os.environ.get("KMTPU_STAGE_TIMES"):
-        Log.debug(1, "main: run %.3f cleanup %.3f"
-                  % (t1 - t0, _t.perf_counter() - t1))
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(rc)

@@ -30,6 +30,9 @@ places:
 - `run` takes `--device cuda|cpu` (default cuda; cuda without a visible GPU
   raises) in place of `--jax-platform`. Every engine takes any k, as the
   source does (--mesh N: keys of ceil(k / 32) int64 lanes).
+- `run` applies --debug and is a run of the port's tracer
+  (utils/timers.py): traced when the tracer is enabled or --debug is 1 or
+  more, with spans and counters on the `--mesh` path.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ from kmernator_tpu_torch.parallel.device_spectrum import (pack_readset,
 from kmernator_tpu_torch.parallel.mesh import (extension_spectrum_mesh,
                                                make_mesh)
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys, unpack_keys
+from kmernator_tpu_torch.utils import timers
 from kmernator_tpu_torch.utils.device import resolve_device
 from kmernator_tpu_torch.utils.logging import Log
 from kmernator_tpu_torch.utils.options import (GeneralOptions, KmerBaseOptions,
@@ -279,6 +283,7 @@ def dump_counts(spectrum: KmerSpectrum, path: str, min_depth: int):
         data = _emit_lines(strands, [np.repeat(counts, 2)], b"", b"\n")
     with open(path, "wb") as f:
         f.write(data)
+    timers.count("io.bytes_written", len(data))
 
 
 def dump_graphs(spectrum: KmerSpectrum, path: str, min_depth: int):
@@ -306,6 +311,7 @@ def dump_graphs(spectrum: KmerSpectrum, path: str, min_depth: int):
                            b" ", b"0\n")
     with open(path, "wb") as f:
         f.write(data)
+    timers.count("io.bytes_written", len(data))
 
 
 def spectrum_from_device(k: int, lanes, counts, ext) -> KmerSpectrum:
@@ -315,7 +321,10 @@ def spectrum_from_device(k: int, lanes, counts, ext) -> KmerSpectrum:
     in the same key order: the lanes' order is the keys' word order."""
     W = nwords(k)
     sp = KmerSpectrum(k=k)
-    words = np.stack([c.cpu().numpy() for c in decode_lanes(lanes, W)],
+    cols = decode_lanes(lanes, W)
+    timers.count("device.d2h_bytes", sum(
+        t.numel() * t.element_size() for t in cols + [counts, ext]))
+    words = np.stack([c.cpu().numpy() for c in cols],
                      axis=1).astype(np.uint32).reshape(-1, W)
     sp.keys = pack_keys(words)
     sp.counts = counts.cpu().numpy().astype(np.int64)
@@ -333,7 +342,40 @@ def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
     counting run on the device. The reads are padded to a multiple of the
     shards; a bucket overflow retries at twice the capacity_factor, from
     2.0 up to 32, as the JAX app does."""
-    mesh = make_mesh(n_devices, device)
+    with timers.span("apps.count_pass"):
+        mesh = make_mesh(n_devices, device)
+        with timers.span("apps.prepare"):
+            host = _padded_inputs(rs, k, min_quality, output_base,
+                                  min_kmer_quality, n_devices)
+        if timers.active():
+            timers.count("apps.windows_good", int(host[1].sum()))
+        with timers.span("ext.count", device=mesh.device):
+            timers.count("device.h2d_bytes", sum(a.nbytes for a in host))
+            args = tuple(torch.from_numpy(a).to(mesh.device) for a in host)
+            del host
+            cap = 2.0
+            while True:
+                lanes, counts, ext, overflow = extension_spectrum_mesh(
+                    mesh, k, *args, min_count=1, capacity_factor=cap)
+                if not overflow:
+                    break
+                # hash-skewed input: double per-owner bucket capacity
+                cap *= 2.0
+                if cap > 32.0:
+                    raise RuntimeError(
+                        "mesh bucket overflow even at capacity %g" % cap)
+                Log.warn("mesh bucket overflow — retrying with "
+                         "capacity_factor %g" % cap)
+        with timers.span("table.to_host"):
+            return spectrum_from_device(k, lanes, counts, ext)
+
+
+def _padded_inputs(rs: ReadSet, k: int, min_quality: int, output_base: int,
+                   min_kmer_quality: float, n_devices: int):
+    """The host arrays of build_extension_spectrum_mesh: codes [B, L] u8,
+    good2d [B, NW] bool (the exact host weights' goodness), ext_ok2d [B, L]
+    bool and lengths [B] i32, the reads padded to a multiple of
+    n_devices."""
     L = max(rs.max_length(), k)
     codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
     B = codes.shape[0]
@@ -358,29 +400,14 @@ def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
         good2d = np.concatenate([good2d, np.zeros((pad, NW), bool)])
         ext_ok2d = np.concatenate([ext_ok2d, np.zeros((pad, L), bool)])
         lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
-
-    def dev(a):
-        return torch.from_numpy(a).to(mesh.device)
-
-    args = (dev(codes), dev(good2d), dev(ext_ok2d), dev(lengths))
-    cap = 2.0
-    while True:
-        lanes, counts, ext, overflow = extension_spectrum_mesh(
-            mesh, k, *args, min_count=1, capacity_factor=cap)
-        if not overflow:
-            break
-        cap *= 2.0  # hash-skewed input: double per-owner bucket capacity
-        if cap > 32.0:
-            raise RuntimeError(
-                "mesh bucket overflow even at capacity %g" % cap)
-        Log.warn("mesh bucket overflow — retrying with capacity_factor %g"
-                 % cap)
-    return spectrum_from_device(k, lanes, counts, ext)
+    return codes, good2d, ext_ok2d, lengths
 
 
+@timers.traced_run
 def run(argv: List[str]) -> int:
     """MeraculousCounter. The JAX app's arguments, with --device cuda|cpu
-    (default cuda) in place of --jax-platform."""
+    (default cuda) in place of --jax-platform. A run of the tracer
+    (utils/timers.py), as FilterReads' run is."""
     argv = list(argv)
     device_name = "cuda"
     if "--device" in argv:
@@ -418,6 +445,8 @@ def run(argv: List[str]) -> int:
     Log.verbose_level = opts.verbose
     if getattr(opts, "log_file", ""):
         Log.set_log_file(opts.log_file)
+    Log.debug_level = opts.debug
+    timers.begin_run(opts.debug)
 
     k = kopts.kmer_size
     if k == 0:
@@ -444,9 +473,12 @@ def run(argv: List[str]) -> int:
             opts.fastq_output_base_quality, sopts.min_kmer_quality,
             streaming_chunk_mb, opts.keep_read_comment, streaming_parts)
     else:
-        rs = load_reads(opts.input_file, opts.fastq_base_quality,
-                        opts.fastq_output_base_quality,
-                        opts.keep_read_comment)
+        with timers.span("io.parse"):
+            rs = load_reads(opts.input_file, opts.fastq_base_quality,
+                            opts.fastq_output_base_quality,
+                            opts.keep_read_comment)
+        timers.count("io.reads", rs.n)
+        timers.count("io.bases", len(rs.seq))
         if mesh_devices > 0:
             spectrum = build_extension_spectrum_mesh(
                 rs, k, opts.min_quality_score,
@@ -456,11 +488,15 @@ def run(argv: List[str]) -> int:
             spectrum = build_extension_spectrum(
                 rs, k, opts.min_quality_score,
                 opts.fastq_output_base_quality, sopts.min_kmer_quality)
-    spectrum.purge_min_depth(2)  # weak-map visibility
     out = opts.output_file
-    dump_counts(spectrum, "%s.mercount.m%d" % (out, k), sopts.min_depth)
-    dump_graphs(spectrum, "%s.mergraph.m%d.D%d" % (out, k, sopts.min_depth),
-                sopts.min_depth)
+    with timers.span("apps.output_pass"):
+        with timers.span("apps.purge"):
+            spectrum.purge_min_depth(2)  # weak-map visibility
+        with timers.span("io.output"):
+            dump_counts(spectrum, "%s.mercount.m%d" % (out, k),
+                        sopts.min_depth)
+            dump_graphs(spectrum, "%s.mergraph.m%d.D%d"
+                        % (out, k, sopts.min_depth), sopts.min_depth)
     return 0
 
 

@@ -17,7 +17,10 @@ It differs from its source in its package imports and in:
   `--device cpu` on a machine without one);
 - the `--mesh N` branch builds the read index of parallel/dist_match.py
   on N shards of that device in place of the JAX mesh of N devices, at
-  any k, as in the source (keys of ceil(k / 32) int64 lanes).
+  any k, as in the source (keys of ceil(k / 32) int64 lanes);
+- the "Iteration N times" line is built from the tracer's `timed` spans
+  `asm.match` and `asm.extend` (utils/timers.py), in the source's format,
+  in place of its phase timer.
 """
 from __future__ import annotations
 
@@ -223,55 +226,57 @@ def run(argv: List[str]) -> int:
     final = ReadSet()
     final.input_qual_base = rs.input_qual_base
 
-    from kmernator_tpu_torch.utils.timers import PhaseTimer
-    timer = PhaseTimer()
+    from kmernator_tpu_torch.utils.timers import timed
     iteration = 0
     while iteration < asm.max_iterations and contigs.n > 0:
         iteration += 1
-        timer.reset("iteration-%d" % iteration)
         Log.verbose(1, "Iteration %d: %d contigs" % (iteration, contigs.n))
-        pools = pool_fn(index, contigs)
-        pools = screen_pools(rs, contigs, pools, asm, align_k, mate)
-        timer.record("match")
-        changed = ReadSet()
-        changed.input_qual_base = rs.input_qual_base
-        for ci in range(contigs.n):
-            old_len = int(contigs.lengths()[ci])
-            pool_ids = sorted(pools[ci])
-            if len(pool_ids) <= asm.minimum_coverage:
-                final.append_read(contigs.names[ci], b"",
-                                  contigs.get_seq(ci), None)
-                continue
-            pool = _subset(rs, pool_ids)
-            single = _subset(contigs, [ci])
-            new_len = 0
-            my_k = min_k
-            new_contig = None
-            # ascending-k retry (ref: extendContigsWithContigExtender)
-            while new_len <= old_len and my_k <= max_k:
-                new_contig = extend_contigs(single, pool, params, my_k, my_k, 2,
-                                            opts.min_quality_score,
-                                            opts.fastq_output_base_quality,
-                                            sopts.min_kmer_quality)
-                new_len = int(new_contig.lengths()[0])
-                my_k += k_step
-            if new_len > old_len:
-                changed.append_read(new_contig.names[0], b"",
-                                    new_contig.get_seq(0), None)
-            else:
-                final.append_read(contigs.names[ci], b"",
-                                  contigs.get_seq(ci), None)
-        # retire long contigs (ref: finishLongContigs)
-        keep_idx = []
-        for ci in range(changed.n):
-            if changed.lengths()[ci] >= asm.max_contig_length:
-                final.append_read(changed.names[ci], b"",
-                                  changed.get_seq(ci), None)
-            else:
-                keep_idx.append(ci)
-        contigs = _subset(changed, keep_idx)
-        timer.record("extendContigs")
-        Log.verbose(1, "Iteration %d times: %s" % (iteration, timer.report()))
+        with timed("asm.match") as match:
+            pools = pool_fn(index, contigs)
+            pools = screen_pools(rs, contigs, pools, asm, align_k, mate)
+        with timed("asm.extend") as extend:
+            changed = ReadSet()
+            changed.input_qual_base = rs.input_qual_base
+            for ci in range(contigs.n):
+                old_len = int(contigs.lengths()[ci])
+                pool_ids = sorted(pools[ci])
+                if len(pool_ids) <= asm.minimum_coverage:
+                    final.append_read(contigs.names[ci], b"",
+                                      contigs.get_seq(ci), None)
+                    continue
+                pool = _subset(rs, pool_ids)
+                single = _subset(contigs, [ci])
+                new_len = 0
+                my_k = min_k
+                new_contig = None
+                # ascending-k retry (ref: extendContigsWithContigExtender)
+                while new_len <= old_len and my_k <= max_k:
+                    new_contig = extend_contigs(
+                        single, pool, params, my_k, my_k, 2,
+                        opts.min_quality_score,
+                        opts.fastq_output_base_quality,
+                        sopts.min_kmer_quality)
+                    new_len = int(new_contig.lengths()[0])
+                    my_k += k_step
+                if new_len > old_len:
+                    changed.append_read(new_contig.names[0], b"",
+                                        new_contig.get_seq(0), None)
+                else:
+                    final.append_read(contigs.names[ci], b"",
+                                      contigs.get_seq(ci), None)
+            # retire long contigs (ref: finishLongContigs)
+            keep_idx = []
+            for ci in range(changed.n):
+                if changed.lengths()[ci] >= asm.max_contig_length:
+                    final.append_read(changed.names[ci], b"",
+                                      changed.get_seq(ci), None)
+                else:
+                    keep_idx.append(ci)
+            contigs = _subset(changed, keep_idx)
+        Log.verbose(1, "Iteration %d times: match: %.3fs, extendContigs: "
+                    "%.3fs, total: %.3fs"
+                    % (iteration, match.seconds, extend.seconds,
+                       match.seconds + extend.seconds))
         # checkpoint (ref: per-iteration final/changed fasta writes)
         if opts.output_file:
             write_fasta(final, opts.output_file)

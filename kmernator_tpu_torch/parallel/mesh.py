@@ -49,6 +49,7 @@ from kmernator_tpu_torch.parallel.device_spectrum import (
 from kmernator_tpu_torch.parallel.multihost import (all_to_all_planes,
                                                     allreduce_max_int)
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
+from kmernator_tpu_torch.utils import timers
 
 
 @dataclass(frozen=True)
@@ -118,17 +119,20 @@ def bucket_loads(owner: torch.Tensor, real: torch.Tensor,
     """[S, D] int64: the real rows of each source shard (rows of owner
     [S, N]) that each destination owns. A bucket of C rows overflows by
     max(load - C, 0); the JAX scatter's overflow count is their sum."""
-    S = owner.shape[0]
-    src = torch.arange(S, device=owner.device)[:, None] * D
-    return torch.bincount((src + owner)[real], minlength=S * D).view(S, D)
+    with timers.span("exchange", device=owner.device):
+        S = owner.shape[0]
+        src = torch.arange(S, device=owner.device)[:, None] * D
+        return torch.bincount((src + owner)[real],
+                              minlength=S * D).view(S, D)
 
 
 def owners(key_cols: List[torch.Tensor], D: int) -> torch.Tensor:
     """The owner shard of each key: owner_hash_cols(key_cols) % D (0 at
     D = 1, where the hash is not computed)."""
-    if D == 1:
-        return torch.zeros_like(key_cols[0])
-    return owner_hash_cols(key_cols) % D
+    with timers.span("exchange", device=key_cols[0].device):
+        if D == 1:
+            return torch.zeros_like(key_cols[0])
+        return owner_hash_cols(key_cols) % D
 
 
 def bucket_slots(owner: torch.Tensor, real: torch.Tensor, D: int,
@@ -140,36 +144,40 @@ def bucket_slots(owner: torch.Tensor, real: torch.Tensor, D: int,
     dropped). Ranks follow row order (the JAX sort is unstable; a bucket is
     the same multiset): a running count a destination, in place of the
     JAX sort by owner."""
-    S, N = owner.shape
-    win_slot = torch.full_like(owner, -1)
-    overflow = torch.zeros(S, dtype=torch.int64, device=owner.device)
-    if N == 0:   # a process with no candidates left in a purge chunk
+    with timers.span("exchange", device=owner.device):
+        S, N = owner.shape
+        win_slot = torch.full_like(owner, -1)
+        overflow = torch.zeros(S, dtype=torch.int64, device=owner.device)
+        if N == 0:   # a process with no candidates left in a purge chunk
+            return win_slot, overflow
+        zero = torch.zeros(1, dtype=torch.int64, device=owner.device)
+        for d in range(D):
+            mine = real & (owner == d)
+            # one scan over the sources laid end to end, then each
+            # source's count before its row taken off: on the card, scans
+            # along the rows of an [S, N] tensor with S of 2-4 ran several
+            # times slower
+            run = torch.cumsum(mine.reshape(-1), 0).view(S, N)
+            rank = run - torch.cat([zero, run[:-1, -1]])[:, None] - 1
+            ok = mine & (rank < C)
+            win_slot = torch.where(ok, rank + d * C, win_slot)
+            overflow += (mine & ~ok).sum(1)
         return win_slot, overflow
-    zero = torch.zeros(1, dtype=torch.int64, device=owner.device)
-    for d in range(D):
-        mine = real & (owner == d)
-        # one scan over the sources laid end to end, then each source's
-        # count before its row taken off: on the card, scans along the
-        # rows of an [S, N] tensor with S of 2-4 ran several times slower
-        run = torch.cumsum(mine.reshape(-1), 0).view(S, N)
-        rank = run - torch.cat([zero, run[:-1, -1]])[:, None] - 1
-        ok = mine & (rank < C)
-        win_slot = torch.where(ok, rank + d * C, win_slot)
-        overflow += (mine & ~ok).sum(1)
-    return win_slot, overflow
 
 
 def scatter_plane(x: torch.Tensor, win_slot: torch.Tensor, D: int, C: int,
                   fill) -> torch.Tensor:
     """Rows of x [S, N] into their slots of an [S, D, C] send plane; the
     slots no row takes hold `fill`."""
-    S = x.shape[0]
-    buf = torch.full((S, D * C + 1), fill, dtype=x.dtype, device=x.device)
-    routed = win_slot >= 0
-    buf.scatter_(1, torch.where(routed, win_slot,
-                                torch.full_like(win_slot, D * C)),
-                 torch.where(routed, x, torch.full_like(x, fill)))
-    return buf[:, :D * C].reshape(S, D, C)
+    with timers.span("exchange", device=x.device):
+        S = x.shape[0]
+        buf = torch.full((S, D * C + 1), fill, dtype=x.dtype,
+                         device=x.device)
+        routed = win_slot >= 0
+        buf.scatter_(1, torch.where(routed, win_slot,
+                                    torch.full_like(win_slot, D * C)),
+                     torch.where(routed, x, torch.full_like(x, fill)))
+        return buf[:, :D * C].reshape(S, D, C)
 
 
 def bucket_scatter_cols(key_cols: List[torch.Tensor], good: torch.Tensor,
@@ -201,14 +209,16 @@ def exchange(send: torch.Tensor) -> torch.Tensor:
     D) it is a transpose; with one shard a process, an all_to_all over the
     processes (`multihost.all_to_all_planes`), every process passing the
     same shape."""
-    S, D, C = send.shape[:3]
-    rest = tuple(send.shape[3:])
-    if S == D:
-        return send.transpose(0, 1).reshape((D, D * C) + rest)
-    if S != 1:
-        raise ValueError("%d local shards of %d: a mesh holds every shard "
-                         "in one process or one a process" % (S, D))
-    return all_to_all_planes(send[0]).reshape((1, D * C) + rest)
+    with timers.span("exchange", device=send.device):
+        S, D, C = send.shape[:3]
+        rest = tuple(send.shape[3:])
+        if S == D:
+            return send.transpose(0, 1).reshape((D, D * C) + rest)
+        if S != 1:
+            raise ValueError("%d local shards of %d: a mesh holds every "
+                             "shard in one process or one a process"
+                             % (S, D))
+        return all_to_all_planes(send[0]).reshape((1, D * C) + rest)
 
 
 def plane_width(loads: torch.Tensor) -> int:

@@ -105,6 +105,7 @@ from kmernator_tpu_torch.parallel.multihost import (allgather_host,
                                                     allreduce_max_int)
 from kmernator_tpu_torch.parallel.run_length import run_length_sums
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
+from kmernator_tpu_torch.utils import timers
 from kmernator_tpu_torch.utils.logging import Log
 
 # candidate rows a purge chunk holds at most, by device type
@@ -276,6 +277,7 @@ class MeshStreamingSpectrum:
         self.purge_stats: Dict[str, int] = {}
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        timers.count("device.h2d_bytes", a.nbytes)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _route(self, codes, mask2d, lengths, weights2d=None,
@@ -317,6 +319,7 @@ class MeshStreamingSpectrum:
         C, retries = bucket_capacity(
             width, math.ceil(N / D * self.capacity_factor), 64 * N)
         self.overflow_retries += retries
+        timers.count("table.overflow_retries", retries)
         win_slot, _ = bucket_slots(owner, m, D, width)
         del owner
         recv = [exchange(scatter_plane(lane, win_slot, D, width,
@@ -379,10 +382,12 @@ class MeshStreamingSpectrum:
             del rows
             kept.append(self._drain_shard(d, keys, counts, weights))
         self.drains += 1
+        timers.count("table.drains")
         # every process's purged rows and fullest shard
         got = allgather_ints([sum(p for _, p in kept),
                               max(f for f, _ in kept)])
         self.purged_singletons += int(got[:, 0].sum())
+        timers.count("table.purged_singletons", int(got[:, 0].sum()))
         self._last_filled = int(got[:, 1].max())
         self._maybe_grow(self._last_filled)
 
@@ -390,6 +395,10 @@ class MeshStreamingSpectrum:
         """Shard d's table becomes the runs of (keys, counts, weights) its
         table rows and staged rows: returns the rows it keeps and the
         singletons it purged."""
+        with timers.span("table.drain", device=self.device):
+            return self._drain_runs(d, keys, counts, weights)
+
+    def _drain_runs(self, d: int, keys, counts, weights) -> Tuple[int, int]:
         # 1) sort by key; run totals at run ends from the run-length kernel
         skeys, perm = sort_lanes(keys)
         del keys
@@ -721,11 +730,14 @@ class MeshStreamingSpectrum:
         sorted on the host, as the JAX finalize sorts them. Across
         processes every process receives the whole table."""
         self._drain()
+        cols = decode_lanes(self.table_lanes, self.W)
+        timers.count("device.d2h_bytes", sum(
+            t.numel() * t.element_size()
+            for t in cols + [self.table_counts, self.table_weights]))
         cnt = allgather_host(self.table_counts.reshape(-1))
         wt = allgather_host(self.table_weights.reshape(-1))
         real = cnt >= min_depth
-        ks = [allgather_host(c.reshape(-1)).astype(np.uint32)
-              for c in decode_lanes(self.table_lanes, self.W)]
+        ks = [allgather_host(c.reshape(-1)).astype(np.uint32) for c in cols]
         keys = np.stack([c[real] for c in ks], axis=-1)
         counts = cnt[real]
         weights = wt[real]

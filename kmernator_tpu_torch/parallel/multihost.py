@@ -48,6 +48,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from kmernator_tpu_torch.utils import timers
+
 
 def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
@@ -145,8 +147,13 @@ def all_to_all_planes(planes: torch.Tensor) -> torch.Tensor:
     same shape and dtype."""
     if process_count() == 1:
         return planes
-    return _planes_to_device(all_to_all_rows(_planes_to_host(planes)),
-                             planes.device)
+    with timers.span("procs.all_to_all"):
+        host = _planes_to_host(planes)
+        timers.count("device.d2h_bytes", host.nbytes)
+        timers.count("device.h2d_bytes", host.nbytes)
+        with timers.span("procs.collective"):
+            got = all_to_all_rows(host)
+        return _planes_to_device(got, planes.device)
 
 
 # the two copies of all_to_all_planes, functions of their own so that each

@@ -27,6 +27,7 @@ from typing import List, Sequence, Union
 import torch
 
 from kmernator_tpu_torch.ops.kmer import encode_lane
+from kmernator_tpu_torch.utils import timers
 
 Lanes = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -183,12 +184,17 @@ def run_length_sums(lanes: Lanes, vals: torch.Tensor) -> torch.Tensor:
                              % (lane.device, vals.device))
         if not (lane.is_contiguous() and vals.is_contiguous()):
             raise ValueError("run_length_sums takes contiguous tensors")
-    if vals.device.type == "cpu":
-        return run_length_sums_plain(lanes, vals)
-    if vals.device.type == "cuda":
+    if vals.device.type not in ("cpu", "cuda"):
+        raise ValueError("run_length_sums has no kernel for device %s"
+                         % vals.device)
+    # the bytes the work needs: each key lane and value read once, each
+    # sum written once
+    timers.count("kernel.run_length_bytes", (8 * len(lanes) + 8)
+                 * vals.numel())
+    with timers.span("kernel.run_length", device=vals.device):
+        if vals.device.type == "cpu":
+            return run_length_sums_plain(lanes, vals)
         return _run_length_sums_cuda(lanes, vals)
-    raise ValueError("run_length_sums has no kernel for device %s"
-                     % vals.device)
 
 
 def run_length_counts(hi: torch.Tensor, lo: torch.Tensor,

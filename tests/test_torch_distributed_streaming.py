@@ -219,7 +219,10 @@ def test_growth_steps_follow_the_jax_distributed_engine(k, tmp_path, meta,
     assert len(steps) >= 2
     assert steps == GREW.findall(jax_log)
     assert tables[0].purged_singletons == 0
-    assert "purged" not in port_log and "purged" not in jax_log
+    # no purge warning ("... purged N singletons under capacity pressure");
+    # the port's --debug 1 run summary names its purged_singletons counter
+    purge = re.compile(r"purged \d+ singletons")
+    assert not purge.search(port_log) and not purge.search(jax_log)
 
 
 def _histogram_rows(path):
