@@ -170,6 +170,19 @@ started together) and drives the port's paths on the card:
      prints its wall time, its run-length launches by lane count, its
      drains, the device time of its drains and lookups (CUDA events) and
      its peak device memory. Its launches join the kernels line.
+ 21. the prepare_reads kernel (`phase_prepare`) against its plain version,
+     the host's NumPy steps, bit for bit (the largest difference over its
+     outputs measured), one launch a call, at the benchmark's shapes:
+     MeraculousCounter's one call on 200,000 seeded reads of 150 bp at
+     k=21 (extension masks, min quality 2) and one of FilterReads'
+     streamed chunks, 52,000 reads at k=31 (L = 160, min quality 3),
+     reads of phred 2-41 with one base in a thousand N; the
+     kernel alone (CUDA events, its inputs on the card) beside its byte
+     bound, the whole call (the copies to the card and the kernel, and
+     for the chunk the copies back) and the host steps (host clock). Its
+     launches on the main path are counted run by run in phases 4-20: each
+     FilterReads run launches it once a streamed chunk (none on the
+     in-memory engine) and each MeraculousCounter run once.
 Phase 3 also holds the kernel's two- and three-lane instances (k <= 64,
 k <= 96) and its run-time lane loop at four, five and ten lanes (k <= 128,
 160, 320) bit-equal to their plain versions at edge cases, and at the
@@ -208,7 +221,7 @@ COUNT_READS, COUNT_LEN, K = 131072, 100, 31   # the bench's round-1 batch
 COUNT_ROWS = COUNT_READS * (COUNT_LEN - K + 1)   # 9,175,040 = 70 blocks
 BLOCK, CHUNK = 1 << 17, 1 << 15       # merge_sort_2key's defaults
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
-SOURCES = ("run_length", "merge_sort", "hash_insert")
+SOURCES = ("run_length", "merge_sort", "hash_insert", "prepare_reads")
 HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
 ASM_ITERATIONS = 5
 # phase 17's capacity-pressure run on phase 5's input: a shard capacity
@@ -225,6 +238,11 @@ LANE_COUNTS, TIMED_LANES = (2, 3, 4, 5, 10), (2, 3, 4, 5)
 # phase 19: StreamingSpectrum's rows on phase 4's input (past its distinct
 # keys: no purge) and in the purge case on phase 5's (under them)
 STREAM_ROWS, PURGE_ROWS = 1 << 26, 1 << 20
+# phase 21: the benchmark's shapes of the prepare_reads kernel, (name,
+# reads, read length, k, padded length, min quality, min k-mer quality,
+# extension masks)
+PREP_SHAPES = (("meraculous_200k", 200_000, 150, 21, 150, 2, 0.0, True),
+               ("filter_chunk", 52_000, 150, 31, 160, 3, 0.10, False))
 FP32_FLOPS = 67e12                   # H100 SXM data sheet, no tensor cores
 TNF_CONTIGS, TNF_GENOMES, TNF_GENOME_BP = 4096, 16, 1_600_000
 TNF_BOUND = 4.0e-3      # ~ sqrt(2 * 136 * 2^-24): float32 sums near g = 1
@@ -626,7 +644,9 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     in the table's add_batch and lookup_batch."""
     import kmernator_tpu_torch.apps.filter_reads as app
     from kmernator_tpu_torch.parallel import mesh_stream
+    from kmernator_tpu_torch.parallel import prepare_reads as pr
     tables, purges, lookup_events = [], [], []
+    chunk_calls = []
     shard_events = {}
     pass1_end = []
     stages = {}
@@ -676,11 +696,18 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
             pass1_end.append(time.perf_counter())
             return n
 
+    plain_chunk = app._chunk_padded
+
+    def chunk_padded(*a, **kw):
+        chunk_calls.append(1)
+        return plain_chunk(*a, **kw)
+
     port_out = os.path.join(WORK, name + "-port")
     saved_env = {k: os.environ.get(k) for k in extra_env}
     os.environ.update(extra_env)
     plain_class = app.MeshStreamingSpectrum
     app.MeshStreamingSpectrum = Recorded
+    app._chunk_padded = chunk_padded
     plain_steps = timed_steps(steps, stages)
     plain_steps.update(event_timed(
         [(mesh_stream, n) for n in EXCHANGE]
@@ -689,6 +716,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     torch.cuda.reset_peak_memory_stats()
     try:
         rl.launches = 0
+        pr.launches = 0
         before = dict(rl.launches_by_lanes)
         t0 = time.perf_counter()
         rc = app.run(["--device", "cuda", "--mesh", str(mesh)]
@@ -698,10 +726,12 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
         t_end = time.perf_counter()
         t_port = t_end - t0
         launches = rl.launches
+        prep_launches = pr.launches
         by_lanes = lanes_since(rl, before)
     finally:
         app.MeshStreamingSpectrum = plain_class
         restore_steps(plain_steps)
+        app._chunk_padded = plain_chunk
         for key, v in saved_env.items():
             if v is None:
                 os.environ.pop(key, None)
@@ -718,6 +748,16 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     if launches <= 0:
         raise SystemExit("%s: the run-length kernel was never launched"
                          % name)
+    # the streaming engines (--streaming, or an input past the auto-stream
+    # size) prepare each chunk with one prepare_reads launch; the in-memory
+    # engine builds its arrays on the host and launches none
+    auto_mb = int(extra_env.get("KMTPU_AUTO_STREAM_MB", "2"))
+    streamed = ("--streaming" in port_args
+                or os.path.getsize(fq) > (auto_mb << 20))
+    if prep_launches != len(chunk_calls) or (prep_launches > 0) != streamed:
+        raise SystemExit("%s: %d streamed chunks (streaming engine: %s), "
+                         "but %d prepare_reads launches"
+                         % (name, len(chunk_calls), streamed, prep_launches))
     if len(tables) != 1 or tables[0].drains < 1 or tables[0].D != mesh \
             or any(x.device.type != "cuda" for x in tables[0].table_lanes):
         raise SystemExit("%s: the %d shard tables did not live on the card"
@@ -745,9 +785,9 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
                             100 * purge["device_ms"] / 1e3 / t_port))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log("%s: byte-identical (%s); k=%d (%d-lane keys), run_length launches "
-        "%d; table %d rows on %s, %d drains, %d singletons purged; peak "
-        "device memory %.2f GiB"
-        % (name, ", ".join(want), k, lanes, launches, sp.cap,
+        "%d, prepare_reads launches %d (one a chunk); table %d rows on %s, "
+        "%d drains, %d singletons purged; peak device memory %.2f GiB"
+        % (name, ", ".join(want), k, lanes, launches, prep_launches, sp.cap,
            sp.table_lanes[0].device, sp.drains, sp.purged_singletons, peak))
     log("%s: port %.2f s = %.0f reads/s; host engine %.2f s = %.0f reads/s"
         % (name, t_port, n_reads / t_port, t_host, n_reads / t_host))
@@ -756,6 +796,7 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
         os.remove(path)
     lookup_ms = sum(a.elapsed_time(b) for a, b in lookup_events)
     return {"name": name, "k": k, "launches": launches,
+            "prep_launches": prep_launches, "chunks": len(chunk_calls),
             "by_lanes": by_lanes, "port_s": t_port,
             "host_s": t_host, "reads": n_reads, "peak_gib": peak,
             "purge": purge, "host_out": host_out, "host_log": host_log,
@@ -835,13 +876,13 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     each of the app's steps."""
     import kmernator_tpu_torch.apps.meraculous_counter as app
     from kmernator_tpu_torch.parallel import mesh as tmesh
+    from kmernator_tpu_torch.parallel import prepare_reads as pr
     calls = []
     stages = {}
     shard_events = {}
     plain = {n: getattr(app, n) for n in (
-        "load_reads", "pack_readset", "window_weights", "ragged_to_padded",
-        "extension_spectrum_mesh", "spectrum_from_device", "dump_counts",
-        "dump_graphs")}
+        "load_reads", "prepare_reads", "extension_spectrum_mesh",
+        "spectrum_from_device", "dump_counts", "dump_graphs")}
 
     def host_timed(step):
         def call(*a, **kw):
@@ -849,6 +890,8 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
             try:
                 return plain[step](*a, **kw)
             finally:
+                if step == "prepare_reads":   # its kernel runs on after
+                    torch.cuda.synchronize()  # the launch returns
                 stages[step] = (stages.get(step, 0.0)
                                 + time.perf_counter() - t0)
         return call
@@ -876,6 +919,7 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     torch.cuda.reset_peak_memory_stats()
     try:
         rl.launches = 0
+        pr.launches = 0
         before = dict(rl.launches_by_lanes)
         t0 = time.perf_counter()
         rc = app.run(["--device", "cuda", "--mesh", str(mesh),
@@ -884,6 +928,7 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
         t_end = time.perf_counter()
         t_port = t_end - t0
         launches = rl.launches
+        prep_launches = pr.launches
         by_lanes = lanes_since(rl, before)
     finally:
         for step, fn in plain.items():
@@ -914,19 +959,21 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     if (not calls or calls[-1]["overflow"] or
             {c["on"] for c in calls} != {"cuda:0"}
             or launches != want_launches
-            or by_lanes.get(lanes, 0) != want_launches):
-        raise SystemExit("%s: expected extension_spectrum_mesh on the card "
-                         "and %d run-length launches at %d lanes; got %s "
-                         "and %s" % (name, want_launches, lanes, calls,
-                                     by_lanes))
+            or by_lanes.get(lanes, 0) != want_launches
+            or prep_launches != 1):
+        raise SystemExit("%s: expected extension_spectrum_mesh on the card, "
+                         "%d run-length launches at %d lanes and one "
+                         "prepare_reads launch; got %s, %s and %d"
+                         % (name, want_launches, lanes, calls, by_lanes,
+                            prep_launches))
     call = calls[-1]
     exchange_ms = events_ms(shard_events, EXCHANGE)
     count_ms = events_ms(shard_events, ["count_received_ext"])
     log("%s: byte-identical (%s); --mesh %d, k=%d (%d-lane keys), "
-        "run_length launches %d %s; %d windows, %d distinct k-mers; "
-        "extension_spectrum_mesh %.1f ms of device time (CUDA events), of "
-        "which the shard exchange %.1f ms and the shards' counting %.1f "
-        "ms; %d overflow retries; peak device memory %.2f GiB"
+        "run_length launches %d %s, prepare_reads 1; %d windows, %d distinct "
+        "k-mers; extension_spectrum_mesh %.1f ms of device time (CUDA "
+        "events), of which the shard exchange %.1f ms and the shards' "
+        "counting %.1f ms; %d overflow retries; peak device memory %.2f GiB"
         % (name, ", ".join("%s %d B, %d lines" % (x, *sizes[x])
                            for x in sorted(sizes)), mesh, k, lanes,
            launches, by_lanes, call["windows"], call["kmers"],
@@ -940,6 +987,7 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
                                        else list(want.values())):
         os.remove(path)
     return {"name": name, "k": k, "mesh": mesh, "launches": launches,
+            "prep_launches": prep_launches,
             "by_lanes": by_lanes, "port_s": t_port, "host_s": t_host,
             "host_out": host_out, "reads": n_reads, "peak_gib": peak,
             "stages_s": stages, "exchange_ms": exchange_ms,
@@ -2919,6 +2967,93 @@ def phase_wide_k(rl, ms, hi, fq32: str, n32: int, in_memory, asm_seeds: str,
     return fr + [mer], asm, lib_lanes, lib
 
 
+def prep_readset(n: int, length: int, seed: int):
+    """n seeded reads of `length` bases: ACGT with one N in a thousand,
+    phred 2-41 at input base 33."""
+    from kmernator_tpu_torch.io.reads import ReadSet
+    rng = np.random.default_rng(seed)
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n * length)]
+    seq[rng.random(seq.size) < 1e-3] = ord("N")
+    rs = ReadSet()
+    rs.seq = seq
+    rs.qual = (rng.integers(2, 42, n * length) + 33).astype(np.uint8)
+    rs.offsets = np.arange(n + 1, dtype=np.int64) * length
+    rs.discarded = np.zeros(n, dtype=bool)
+    rs.has_quals = np.ones(n, dtype=bool)
+    rs.names = [b""] * n
+    rs.comments = [b""] * n
+    rs.file_idx = np.zeros(n, dtype=np.int32)
+    return rs
+
+
+def phase_prepare(smi: str) -> dict:
+    """The prepare_reads kernel at the benchmark's shapes: bit-equal to
+    the host steps (the largest difference over every output measured),
+    one launch a call, timed alone, with its copies, and beside the
+    host."""
+    from kmernator_tpu_torch.parallel import prepare_reads as pr
+    pr.launches = 0
+    dev = torch.device("cuda")
+    out = {"max_abs_err": 0.0}
+    for i, (name, n, length, k, L, minq, minkq, ext) in enumerate(
+            PREP_SHAPES):
+        rs = prep_readset(n, length, 21 + i)
+        t0 = time.perf_counter()
+        want = pr.prepare_reads_plain(rs, k, L, minq, 33, minkq,
+                                      ext_ok=ext)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        before = pr.launches
+        t0 = time.perf_counter()
+        got = pr.prepare_reads(rs, k, L, minq, 33, minkq, device=dev,
+                               ext_ok=ext)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        if pr.launches != before + 1:
+            raise SystemExit("prepare_reads %s: %d launches in one call"
+                             % (name, pr.launches - before))
+        back = 0.0
+        if not ext:       # FilterReads copies the chunk's arrays back
+            t0 = time.perf_counter()
+            [t.cpu() for t in got[:3]]
+            back = time.perf_counter() - t0
+        err = 0.0
+        for a, b in zip(got, want):
+            if b is None:
+                continue
+            a = a.cpu()
+            if a.numel():
+                err = max(err, (a.double() - b.double()).abs().max().item())
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise SystemExit("prepare_reads %s: the kernel differs from "
+                                 "the host steps (largest difference %g)"
+                                 % (name, err))
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        reads = pr.reads_on_device(rs, dev)
+        tabs = pr.device_tables(dev, 33, minq, 33)
+        ms_ = cuda_ms(lambda: pr.launch(reads, tabs, n, k, L, minkq,
+                                        33 + pr.EXT_MIN_QUALITY, got), 20)
+        NW = L - k + 1
+        nbytes = 2 * n * length + 9 * n + 8 + n * (L + NW + 4 + (
+            L if ext else 0))
+        out[name] = {"reads": n, "k": k, "L": L, "kernel_ms": ms_,
+                     "max_abs_err": err,
+                     "bound_ms": bytes_bound_ms(nbytes), "bytes": nbytes,
+                     "call_with_copies_ms": call_s * 1e3,
+                     "copy_back_ms": back * 1e3, "host_ms": host_s * 1e3,
+                     "windows": int(want.totals[0]),
+                     "good": int(want.totals[1])}
+        log("phase 21 prepare_reads %s: bit-equal (largest difference %g); "
+            "kernel %.4f ms (bound %.4f), call with copies %.1f ms, copy "
+            "back %.1f ms, host steps %.1f ms"
+            % (name, err, ms_, bytes_bound_ms(nbytes), call_s * 1e3,
+               back * 1e3, host_s * 1e3))
+        del reads, got, want
+    out["launches"] = pr.launches
+    out["card"] = smi
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3086,6 +3221,10 @@ def main() -> int:
             outputs(asm[1]["host_out"]).values()):
         os.remove(path)
     log("phase 20 k > 96 ok [%.1f s]" % (time.perf_counter() - t0))
+
+    t0 = time.perf_counter()
+    prep = phase_prepare(smi)
+    log("phase 21 prepare_reads ok [%.1f s]" % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer + dist
     launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
     runs += mesh_runs["runs"]
@@ -3107,6 +3246,14 @@ def main() -> int:
                          "kernel at every lane count 1-5 (or the counts "
                          "by lane miss some of its %d launches): %s"
                          % (launches, by_lanes))
+    # prepare_reads: counted run by run (one a streamed chunk, one a
+    # MeraculousCounter run); phase 18's ranks run in processes of their own
+    prep_launches = sum(r.get("prep_launches", 0) for r in runs)
+    if prep_launches <= 0:
+        raise SystemExit("the main path never launched prepare_reads")
+    log("prepare_reads launches on the app runs of phases 4-20: %d (%s)"
+        % (prep_launches, ", ".join("%s %d" % (r["name"], r["prep_launches"])
+                                    for r in runs if r.get("prep_launches"))))
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kmernator_tpu"))
@@ -3236,7 +3383,21 @@ def main() -> int:
         "k16_high_load_unpack_ms": r["high_load_split"][2],
         "k16_high_load_bound_ms": hash_bound_ms(r["n"], r["cap_hl"])[0],
         "k16_high_load_sector_bound_ms": hash_bound_ms(r["n"],
-                                                       r["cap_hl"])[1]}]}))
+                                                       r["cap_hl"])[1]}, {
+        "name": "prepare_reads", "route": "cuda",
+        "source": "kmernator_tpu_torch/csrc/prepare_reads.cu",
+        "replaces": None,
+        "replaces_why": "the JAX package prepares the count path's input "
+                        "on the host (float64 window weights)",
+        "launches": prep_launches, "max_abs_err": prep["max_abs_err"],
+        "ms": prep["meraculous_200k"]["kernel_ms"],
+        "plain_ms": prep["meraculous_200k"]["host_ms"],
+        "bound_ms": prep["meraculous_200k"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": "meraculous_200k: 200,000 reads x 150 bp, k=21",
+        "call_with_copies_ms": prep["meraculous_200k"][
+            "call_with_copies_ms"],
+        "chunk": prep["filter_chunk"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

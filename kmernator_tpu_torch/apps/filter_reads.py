@@ -21,7 +21,9 @@ source in its package imports and in these places:
   (--streaming --distributed, with grow-on-pressure and its pass-2
   lookups on the device) count and look up on a torch device through
   MeshStreamingSpectrum. Those that touch the device take it as a
-  keyword, threaded from `run`.
+  keyword, threaded from `run`. On a CUDA device `_chunk_padded` builds a
+  chunk's padded arrays with the prepare_reads kernel
+  (parallel/prepare_reads.py); the source builds them on the host.
 - Across processes the table is the port's `multihost.global_mesh`, one
   shard a process on its `--device`, and the processes talk over
   torch.distributed with gloo (`multihost.initialize`), so the shard
@@ -69,6 +71,7 @@ from kmernator_tpu_torch.parallel.device_spectrum import (
     auto_mesh_batch, pack_readset, padded_to_ragged, ragged_to_padded)
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
+from kmernator_tpu_torch.parallel.prepare_reads import prepare_reads
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys
 from kmernator_tpu_torch.utils.device import resolve_device
 from kmernator_tpu_torch.utils import timers
@@ -727,32 +730,39 @@ def _chunk_observations(rs: ReadSet, k: int, min_quality: int,
 
 def _chunk_padded(rs, k: int, L: int, min_quality: int, output_base: int,
                   min_kmer_quality: float, subtract_keys=None,
-                  track_weights: bool = False):
+                  track_weights: bool = False, *, device):
     """One streamed chunk -> padded batch arrays: codes [B, L] u8, good2d
-    [B, NW] bool (exact host goodness), lengths [B] i32, weights2d [B, NW]
-    f32 or None, and the chunk's (raw, good) window totals."""
+    [B, NW] bool (exact goodness), lengths [B] i32, weights2d [B, NW] f32
+    or None, and the chunk's (raw, good) window totals. On a CUDA `device`
+    the prepare_reads kernel builds them on the card and they come back to
+    the host in one copy each, every device buffer freed before the
+    return; on the CPU the host's NumPy steps do."""
     NW = L - k + 1
-    codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
-    codes_raw = BASE_CODE[rs.seq]
-    markup = codes_raw == 4
-    p = rs.base_probabilities(min_quality, output_base)
-    w = window_weights(p, rs.offsets, markup, k)
-    good = good_kmer_mask(w, min_kmer_quality)
+    prep = prepare_reads(rs, k, L, min_quality, output_base,
+                         min_kmer_quality, device=device,
+                         weights=track_weights)
+    on_card = prep.codes.device.type != "cpu"
+    host = [None if t is None else t.cpu().numpy() for t in
+            (prep.codes, prep.good2d, prep.lengths, prep.weights2d,
+             prep.totals)]
+    del prep
+    if on_card:
+        timers.count("device.d2h_bytes", sum(a.nbytes for a in host
+                                             if a is not None))
+    codes, good2d, lengths, weights2d, totals = host
+    raw, good = int(totals[0]), int(totals[1])
     if subtract_keys is not None and len(subtract_keys):
-        cds = np.where(markup, 0, codes_raw).astype(np.uint8)
+        codes_raw = BASE_CODE[rs.seq]
+        cds = np.where(codes_raw == 4, 0, codes_raw).astype(np.uint8)
         canon, _, _, _ = extract_kmers_flat(cds, rs.offsets, k)
         keys = pack_keys(canon)
         idx = np.clip(np.searchsorted(subtract_keys, keys), 0,
                       len(subtract_keys) - 1)
-        good = good & (subtract_keys[idx] != keys)
-    nw = np.maximum(rs.lengths() - k + 1, 0)
-    good2d = ragged_to_padded(good, nw, NW, fill=False)
-    good2d &= ~rs.discarded[:, None]
-    weights2d = None
-    if track_weights:
-        weights2d = ragged_to_padded(w.astype(np.float32), nw, NW, fill=0.0)
-    return codes, good2d, lengths, weights2d, int(nw.sum()), int(
-        (good & ~rs.discarded[np.repeat(np.arange(rs.n), nw)]).sum())
+        nw = np.maximum(rs.lengths() - k + 1, 0)
+        windows = np.arange(NW) < nw[:, None]
+        good2d[windows] &= subtract_keys[idx] != keys
+        good = int(good2d.sum())
+    return codes, good2d, lengths, weights2d, raw, good
 
 
 def _streaming_mesh_count(chunks, input_files, k, min_quality, output_base,
@@ -782,10 +792,10 @@ def _streaming_mesh_count(chunks, input_files, k, min_quality, output_base,
                 batch_reads = auto_mesh_batch(L, k)
                 Log.verbose(1, "mesh batch auto-selected: %d reads (L=%d)"
                             % (batch_reads, L))
-            with timers.span("apps.prepare"):
+            with timers.span("apps.prepare", device=device):
                 codes, good2d, lengths, weights2d, r, g = _chunk_padded(
                     rs, k, L, min_quality, output_base, min_kmer_quality,
-                    subtract_keys, track_w)
+                    subtract_keys, track_w, device=device)
             timers.count("apps.windows_good", g)
             raw += r
             good_total += g
@@ -1801,7 +1811,7 @@ def run_streaming_distributed(opts, kopts, sopts, ropts, aopts, fopts,
             codes, good2d, lengths, weights2d, r, g = _chunk_padded(
                 rs, k, Lc, opts.min_quality_score,
                 opts.fastq_output_base_quality, sopts.min_kmer_quality,
-                subtract_keys, track_w)
+                subtract_keys, track_w, device=device)
             if not replay:
                 stats["raw"] += r
                 stats["good"] += g

@@ -22,7 +22,11 @@ places:
   shards of a torch device through parallel/mesh.py
   `extension_spectrum_mesh`: each shard's 13 key-run sums come from the
   run-length kernel. `spectrum_from_device` carries its table to the host
-  KmerSpectrum the dumps read.
+  KmerSpectrum the dumps read. Its inputs (`_padded_inputs`: codes, the
+  exact weights' goodness, the extension-quality mask, lengths) are built
+  on a CUDA device by the prepare_reads kernel from the reads' bytes
+  (parallel/prepare_reads.py); the source builds them on the host, as the
+  port does on the CPU.
 - `build_extension_spectrum_streaming` stores the key of its spill record
   as `pack_keys` makes it: u64 for k <= 32, a big-endian byte string of 4W
   bytes above. The source stores u64 at every k, so its streaming engine
@@ -49,10 +53,9 @@ from kmernator_tpu_torch.ops.kmer import (decode_lanes, extract_kmers_flat,
                                           kmer_to_string, nwords,
                                           revcomp_words)
 from kmernator_tpu_torch.ops.weights import window_weights, good_kmer_mask
-from kmernator_tpu_torch.parallel.device_spectrum import (pack_readset,
-                                                          ragged_to_padded)
 from kmernator_tpu_torch.parallel.mesh import (extension_spectrum_mesh,
                                                make_mesh)
+from kmernator_tpu_torch.parallel.prepare_reads import prepare_reads
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys, unpack_keys
 from kmernator_tpu_torch.utils import timers
 from kmernator_tpu_torch.utils.device import resolve_device
@@ -337,22 +340,25 @@ def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
                                   n_devices: int, *,
                                   device) -> KmerSpectrum:
     """The extension-tracking spectrum on n_devices shards of one torch
-    device (the JAX app's sharded MeraculousCounter path): exact host
-    weights gate goodness; windows, extensions, the exchange and the
-    counting run on the device. The reads are padded to a multiple of the
-    shards; a bucket overflow retries at twice the capacity_factor, from
-    2.0 up to 32, as the JAX app does."""
+    device (the JAX app's sharded MeraculousCounter path): exact float64
+    weights gate goodness; the inputs, windows, extensions, the exchange
+    and the counting run on the device. The reads are padded to a
+    multiple of the shards; a bucket overflow retries at twice the
+    capacity_factor, from 2.0 up to 32, as the JAX app does."""
     with timers.span("apps.count_pass"):
         mesh = make_mesh(n_devices, device)
-        with timers.span("apps.prepare"):
-            host = _padded_inputs(rs, k, min_quality, output_base,
-                                  min_kmer_quality, n_devices)
+        with timers.span("apps.prepare", device=mesh.device):
+            prep = _padded_inputs(rs, k, min_quality, output_base,
+                                  min_kmer_quality, n_devices,
+                                  device=mesh.device)
+        args = (prep.codes, prep.good2d, prep.ext_ok2d, prep.lengths)
         if timers.active():
-            timers.count("apps.windows_good", int(host[1].sum()))
+            timers.count("apps.windows_good", int(prep.totals[1]))
+            if mesh.device.type == "cpu":   # the kernel counts its copies
+                timers.count("device.h2d_bytes", sum(
+                    t.numel() * t.element_size() for t in args))
+        del prep
         with timers.span("ext.count", device=mesh.device):
-            timers.count("device.h2d_bytes", sum(a.nbytes for a in host))
-            args = tuple(torch.from_numpy(a).to(mesh.device) for a in host)
-            del host
             cap = 2.0
             while True:
                 lanes, counts, ext, overflow = extension_spectrum_mesh(
@@ -371,36 +377,18 @@ def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
 
 
 def _padded_inputs(rs: ReadSet, k: int, min_quality: int, output_base: int,
-                   min_kmer_quality: float, n_devices: int):
-    """The host arrays of build_extension_spectrum_mesh: codes [B, L] u8,
-    good2d [B, NW] bool (the exact host weights' goodness), ext_ok2d [B, L]
-    bool and lengths [B] i32, the reads padded to a multiple of
-    n_devices."""
+                   min_kmer_quality: float, n_devices: int, *, device):
+    """The inputs of build_extension_spectrum_mesh, prepare_reads' tensors
+    on `device`: codes [B, L] u8, good2d [B, NW] bool
+    (the exact weights' goodness), ext_ok2d [B, L] bool, lengths [B] i32
+    and the (raw, good) window totals, the reads padded with empty rows to
+    a multiple of n_devices. On a CUDA device the prepare_reads kernel
+    builds them from the reads' bytes on the card; on the CPU the host's
+    NumPy steps do."""
     L = max(rs.max_length(), k)
-    codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
-    B = codes.shape[0]
-    NW = L - k + 1
-    codes_raw = BASE_CODE[rs.seq]
-    markup = codes_raw == 4
-    p = rs.base_probabilities(min_quality, output_base)
-    w = window_weights(p, rs.offsets, markup, k)
-    exact_good = good_kmer_mask(w, min_kmer_quality)
-    lens = rs.lengths()
-    nw = np.maximum(lens - k + 1, 0)
-    good2d = ragged_to_padded(exact_good, nw, NW, fill=False)
-    phred = rs.phred()
-    read_id = np.repeat(np.arange(rs.n), lens)
-    ok_flat = (phred >= EXT_MIN_QUALITY) | ~rs.has_quals[read_id]
-    ext_ok2d = ragged_to_padded(ok_flat, lens, L, fill=False)
-    good2d &= ~rs.discarded[:, None]
-    del codes_raw, markup, p, w, exact_good, phred, read_id, ok_flat
-    pad = (-B) % n_devices
-    if pad:
-        codes = np.concatenate([codes, np.zeros((pad, L), codes.dtype)])
-        good2d = np.concatenate([good2d, np.zeros((pad, NW), bool)])
-        ext_ok2d = np.concatenate([ext_ok2d, np.zeros((pad, L), bool)])
-        lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
-    return codes, good2d, ext_ok2d, lengths
+    return prepare_reads(rs, k, L, min_quality, output_base,
+                         min_kmer_quality, device=device,
+                         rows=rs.n + (-rs.n) % n_devices, ext_ok=True)
 
 
 @timers.traced_run

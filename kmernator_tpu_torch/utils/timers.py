@@ -53,7 +53,8 @@ KEEP = 64   # run records kept
 # the kernels' launch counters the run summary reads (module, attribute)
 LAUNCHES = (("parallel.run_length", "launches"),
             ("parallel.merge_sort", "launches"),
-            ("parallel.hash_insert", "launches"))
+            ("parallel.hash_insert", "launches"),
+            ("parallel.prepare_reads", "launches"))
 
 _active = False       # a run is open: the one flag span() and count() test
 _enabled = False

@@ -24,11 +24,13 @@ from kmernator_tpu_torch.ops.kmer import SENTINEL_LANE, encode_lane
 from kmernator_tpu_torch.parallel import device_spectrum as ds
 from kmernator_tpu_torch.parallel import hash_insert as hi
 from kmernator_tpu_torch.parallel import merge_sort as ms
+from kmernator_tpu_torch.parallel import prepare_reads as pr
 from kmernator_tpu_torch.parallel import run_length as rl
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel import mesh_stream as mst
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
 
+import prepare_reads_cases as cases
 import torch_threads  # noqa: F401
 
 
@@ -1002,3 +1004,133 @@ def test_distributed_count_fn_matches_cpu(cuda_device, D):
         assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
     one = distributed_count_fn(make_mesh(1, "cpu"), 31)(*args)[0]
     assert torch.equal(want[0], one) and int(one.max()) >= 2
+
+
+def _prepared_equal(got, want):
+    """Two Prepared tuples: every array bit-equal (weights as float32
+    bits), the card's on the card."""
+    for name in ("codes", "good2d", "lengths", "weights2d", "ext_ok2d",
+                 "totals"):
+        g, w = getattr(got, name), getattr(want, name)
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.device.type == "cuda" and g.dtype == w.dtype, name
+        assert g.shape == w.shape, name
+        g = g.cpu()
+        if name == "weights2d":
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 31, 63, 127])
+@pytest.mark.parametrize("shape", ["short", "long"])
+@pytest.mark.parametrize("outputs", ["cells", "all"])
+def test_prepare_reads_kernel_matches_plain(cuda_device, k, shape,
+                                            outputs):
+    """The kernel against the host's NumPy steps, bit for bit, on reads
+    with N and other markup, qualities under the minimum (the recompute
+    after a bad window), no qualities, discarded reads and reads shorter
+    than k. "short": reads of at most 150 bases, every block staged in
+    shared memory (good rows, and weights rows where 128 of them fit);
+    "long": reads past 1,024 and 2,048 windows and one of 40,000 bases,
+    whose blocks read and write device memory directly. "cells" builds
+    what the benchmark's jobs take, "all" the weights and extension masks
+    too; both pad with empty rows."""
+    long_ = shape == "long"
+    rs = cases.edge_cases(k, seed=k, input_qual_base=64 if long_ else 33,
+                       long_read=40_000 if long_ else 0,
+                       max_length=0 if long_ else 150)
+    L = -(-max(rs.max_length(), k) // 32) * 32
+    full = outputs == "all"
+    args = (rs, k, L, 3, 33, 0.10)
+    kw = dict(rows=rs.n + 5, weights=full, ext_ok=full)
+    want = pr.prepare_reads(*args, device="cpu", **kw)
+    before = pr.launches
+    got = pr.prepare_reads(*args, device=cuda_device, **kw)
+    torch.cuda.synchronize()
+    assert pr.launches == before + 1
+    _prepared_equal(got, want)
+    assert 0 < int(want.totals[1]) < int(want.totals[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_quality,min_kmer_quality", [(2, 0.0),
+                                                          (20, 0.5)])
+def test_prepare_reads_kernel_thresholds(cuda_device, min_quality,
+                                         min_kmer_quality):
+    """Other minimum qualities and k-mer qualities (MeraculousCounter's 2
+    and 0.0), at k = 21 and 127."""
+    for k in (21, 127):
+        rs = cases.edge_cases(k, seed=min_quality)
+        L = max(rs.max_length(), k)
+        args = (rs, k, L, min_quality, 64, min_kmer_quality)
+        kw = dict(weights=True, ext_ok=True)
+        _prepared_equal(pr.prepare_reads(*args, device=cuda_device, **kw),
+                        pr.prepare_reads(*args, device="cpu", **kw))
+
+
+@pytest.mark.cuda
+def test_prepare_reads_no_reads(cuda_device):
+    """No reads, and only the shards' padding rows: empty rows (the host
+    steps take no empty read set)."""
+    from kmernator_tpu_torch.io.reads import ReadSet
+    for rows in (0, 3):
+        want = pr.Prepared(torch.zeros((rows, 32), dtype=torch.uint8),
+                           torch.zeros((rows, 12), dtype=torch.bool),
+                           torch.zeros(rows, dtype=torch.int32),
+                           torch.zeros((rows, 12), dtype=torch.float32),
+                           torch.zeros((rows, 32), dtype=torch.bool),
+                           torch.zeros(2, dtype=torch.int64))
+        got = pr.prepare_reads(ReadSet(), 21, 32, 3, 33, 0.1,
+                               device=cuda_device, rows=rows, weights=True,
+                               ext_ok=True)
+        torch.cuda.synchronize()
+        _prepared_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subtract", [False, True])
+@pytest.mark.parametrize("track_weights", [False, True])
+def test_chunk_padded_on_the_card(cuda_device, subtract, track_weights):
+    """FilterReads' chunk arrays from the kernel, copied back, against the
+    CPU's; with --subtract keys ANDed in on the host after the copy."""
+    from kmernator_tpu_torch.apps import filter_reads
+    from kmernator_tpu_torch.io.reads import BASE_CODE
+    from kmernator_tpu_torch.parallel.spectrum import pack_keys
+    k = 31
+    rs = cases.edge_cases(k, seed=6, max_length=150)
+    L = -(-max(rs.max_length(), k) // 32) * 32
+    sub = None
+    if subtract:
+        codes_raw = BASE_CODE[rs.seq]
+        cds = np.where(codes_raw == 4, 0, codes_raw).astype(np.uint8)
+        sub = np.unique(pack_keys(tk.extract_kmers_flat(
+            cds, rs.offsets, k)[0])[::5])
+    args = (rs, k, L, 3, 33, 0.10, sub, track_weights)
+    want = filter_reads._chunk_padded(*args, device=torch.device("cpu"))
+    before = pr.launches
+    got = filter_reads._chunk_padded(*args, device=cuda_device)
+    assert pr.launches == before + 1
+    for g, w in zip(got[:4], want[:4]):
+        if w is None:
+            assert g is None
+        else:
+            assert isinstance(g, np.ndarray) and g.dtype == w.dtype
+            assert np.array_equal(g.view(np.uint8), w.view(np.uint8))
+    assert got[4:] == want[4:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_devices", [1, 3])
+def test_padded_inputs_on_the_card(cuda_device, n_devices):
+    """MeraculousCounter's inputs built on the card, left there, against
+    the CPU's."""
+    from kmernator_tpu_torch.apps import meraculous_counter
+    rs = cases.edge_cases(21, seed=8, input_qual_base=64)
+    want = meraculous_counter._padded_inputs(rs, 21, 2, 33, 0.0, n_devices,
+                                             device=torch.device("cpu"))
+    got = meraculous_counter._padded_inputs(rs, 21, 2, 33, 0.0, n_devices,
+                                            device=cuda_device)
+    _prepared_equal(got, want)
