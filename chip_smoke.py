@@ -50,7 +50,8 @@ started together) and drives the port's paths on the card:
      k=21 (one-lane keys) and at k=51 (two lanes), the mercount
      and mergraph files byte-identical to the JAX package's MeraculousCounter
      host engine (`python -m kmernator_tpu.apps.meraculous_counter`, no
-     mesh), 13 run-length launches a run, the device time of
+     mesh), 13 run-length launches a run, one format_mers select launch
+     and one write launch a slab of its plan, the device time of
      `extension_spectrum_mesh` (CUDA events) and peak device memory;
  12. the nucleating assembler `--mesh 1` through its CLI entry point
      (`kmernator_tpu_torch.apps.nucleating_assembler.run`), whose read
@@ -183,6 +184,15 @@ started together) and drives the port's paths on the card:
      launches on the main path are counted run by run in phases 4-20: each
      FilterReads run launches it once a streamed chunk (none on the
      in-memory engine) and each MeraculousCounter run once.
+ 22. the format_mers kernels (`phase_format_mers`) at the benchmark's
+     table: meraculous-k21.meta20x's input (kbench/genmeta.py at a fixed
+     seed) counted on the card as MeraculousCounter --mesh 1 counts it,
+     its two files written by the kernels in the default slabs,
+     byte-identical to the host path's (the table to the host, the purge
+     of depth 2, dump_counts and dump_graphs), one select launch and one
+     write launch a slab; select and the write launches alone (CUDA
+     events) beside their byte bounds, the whole call (the kernels, the
+     pinned copies and the file writes) and the host path (host clock).
 Phase 3 also holds the kernel's two- and three-lane instances (k <= 64,
 k <= 96) and its run-time lane loop at four, five and ten lanes (k <= 128,
 160, 320) bit-equal to their plain versions at edge cases, and at the
@@ -221,7 +231,8 @@ COUNT_READS, COUNT_LEN, K = 131072, 100, 31   # the bench's round-1 batch
 COUNT_ROWS = COUNT_READS * (COUNT_LEN - K + 1)   # 9,175,040 = 70 blocks
 BLOCK, CHUNK = 1 << 17, 1 << 15       # merge_sort_2key's defaults
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
-SOURCES = ("run_length", "merge_sort", "hash_insert", "prepare_reads")
+SOURCES = ("run_length", "merge_sort", "hash_insert", "prepare_reads",
+           "format_mers")
 HASH_N, HASH_CAP = 1 << 10, 1 << 12   # the JAX hash bench's shape
 ASM_ITERATIONS = 5
 # phase 17's capacity-pressure run on phase 5's input: a shard capacity
@@ -872,23 +883,29 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     this run's): mercount and mergraph byte-identical, 13 run-length
     launches a shard at the keys' lane count, the device time of
     extension_spectrum_mesh, of its shard exchange and of its shards'
-    counting from CUDA events around them, and the port's host seconds in
-    each of the app's steps."""
+    counting from CUDA events around them, one format_mers select launch
+    and one write launch a slab of the plan its write returns, and the
+    port's host seconds in each of the app's steps."""
     import kmernator_tpu_torch.apps.meraculous_counter as app
+    from kmernator_tpu_torch.parallel import format_mers as fm
     from kmernator_tpu_torch.parallel import mesh as tmesh
     from kmernator_tpu_torch.parallel import prepare_reads as pr
     calls = []
     stages = {}
     shard_events = {}
+    plans = []
     plain = {n: getattr(app, n) for n in (
-        "load_reads", "prepare_reads", "extension_spectrum_mesh",
-        "spectrum_from_device", "dump_counts", "dump_graphs")}
+        "load_reads", "prepare_reads", "extension_spectrum_mesh")}
+    plain_fm = {n: getattr(fm, n) for n in ("select", "write")}
 
-    def host_timed(step):
+    def host_timed(step, fns=plain):
         def call(*a, **kw):
             t0 = time.perf_counter()
             try:
-                return plain[step](*a, **kw)
+                out = fns[step](*a, **kw)
+                if step == "write":
+                    plans.append(out)
+                return out
             finally:
                 if step == "prepare_reads":   # its kernel runs on after
                     torch.cuda.synchronize()  # the launch returns
@@ -912,6 +929,8 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     port_out = os.path.join(WORK, name + "-port")
     for step in plain:
         setattr(app, step, host_timed(step))
+    for step in plain_fm:
+        setattr(fm, step, host_timed(step, plain_fm))
     app.extension_spectrum_mesh = device_timed
     plain_events = event_timed(
         [(tmesh, n) for n in EXCHANGE + ("count_received_ext",)],
@@ -920,6 +939,7 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
     try:
         rl.launches = 0
         pr.launches = 0
+        fm.launches.clear()
         before = dict(rl.launches_by_lanes)
         t0 = time.perf_counter()
         rc = app.run(["--device", "cuda", "--mesh", str(mesh),
@@ -929,10 +949,13 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
         t_port = t_end - t0
         launches = rl.launches
         prep_launches = pr.launches
+        fm_launches = dict(fm.launches)
         by_lanes = lanes_since(rl, before)
     finally:
         for step, fn in plain.items():
             setattr(app, step, fn)
+        for step, fn in plain_fm.items():
+            setattr(fm, step, fn)
         restore_steps(plain_events)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if rc != 0:
@@ -966,17 +989,23 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
                          "prepare_reads launch; got %s, %s and %d"
                          % (name, want_launches, lanes, calls, by_lanes,
                             prep_launches))
+    slabs = [len(p) for p in plans]
+    if len(slabs) != 1 or fm_launches != {"select": 1, "write": slabs[0]}:
+        raise SystemExit("%s: expected one format_mers select launch and "
+                         "one write launch a slab of its plan; got %s for "
+                         "plans of %s slabs" % (name, fm_launches, slabs))
     call = calls[-1]
     exchange_ms = events_ms(shard_events, EXCHANGE)
     count_ms = events_ms(shard_events, ["count_received_ext"])
     log("%s: byte-identical (%s); --mesh %d, k=%d (%d-lane keys), "
-        "run_length launches %d %s, prepare_reads 1; %d windows, %d distinct "
+        "run_length launches %d %s, prepare_reads 1, format_mers %s; %d "
+        "windows, %d distinct "
         "k-mers; extension_spectrum_mesh %.1f ms of device time (CUDA "
         "events), of which the shard exchange %.1f ms and the shards' "
         "counting %.1f ms; %d overflow retries; peak device memory %.2f GiB"
         % (name, ", ".join("%s %d B, %d lines" % (x, *sizes[x])
                            for x in sorted(sizes)), mesh, k, lanes,
-           launches, by_lanes, call["windows"], call["kmers"],
+           launches, by_lanes, fm_launches, call["windows"], call["kmers"],
            call["device_ms"], exchange_ms, count_ms, len(calls) - 1, peak))
     log("%s: port %.2f s = %.0f reads/s; host engine %.2f s = %.0f reads/s"
         % (name, t_port, n_reads / t_port, t_host, n_reads / t_host))
@@ -987,7 +1016,7 @@ def phase_meraculous(name: str, fq: str, n_reads: int, rl, k: int,
                                        else list(want.values())):
         os.remove(path)
     return {"name": name, "k": k, "mesh": mesh, "launches": launches,
-            "prep_launches": prep_launches,
+            "prep_launches": prep_launches, "format_mers": fm_launches,
             "by_lanes": by_lanes, "port_s": t_port, "host_s": t_host,
             "host_out": host_out, "reads": n_reads, "peak_gib": peak,
             "stages_s": stages, "exchange_ms": exchange_ms,
@@ -3054,6 +3083,77 @@ def phase_prepare(smi: str) -> dict:
     return out
 
 
+def phase_format_mers(smi: str) -> dict:
+    """The format_mers kernels at the benchmark's meraculous table (see
+    phase 22 in the module's note)."""
+    from kbench import genmeta
+    import kmernator_tpu_torch.apps.meraculous_counter as app
+    from kmernator_tpu_torch.io.reads import load_reads
+    from kmernator_tpu_torch.parallel import format_mers as fm
+    dev = torch.device("cuda")
+    with open(os.path.join(ROOT, "kbench", "traffic", "meta20x.json")) as f:
+        traffic = json.load(f)
+    fq = os.path.join(WORK, "meta20x.fastq")
+    genmeta.write(traffic, 2147483701, fq)
+    k, thr = 21, app.dump_threshold(2)
+    table = app.build_extension_spectrum_mesh(load_reads([fq]), k, 2, 33,
+                                              0.0, 1, device=dev)
+    os.remove(fq)
+    torch.cuda.synchronize()
+    paths = [os.path.join(WORK, "format_mers." + x)
+             for x in ("card.mercount", "card.mergraph", "host.mercount",
+                       "host.mergraph")]
+    fm.launches.clear()
+    t0 = time.perf_counter()
+    sel = fm.select(table, k, thr)
+    plan = fm.write(sel, paths[0], paths[1])
+    call_s = time.perf_counter() - t0
+    if dict(fm.launches) != {"select": 1, "write": len(plan)}:
+        raise SystemExit("format_mers: %s launches for %d slabs"
+                         % (dict(fm.launches), len(plan)))
+    t0 = time.perf_counter()
+    sp = app.spectrum_from_device(k, *table)
+    sp.purge_min_depth(app.PURGE_DEPTH)
+    app.dump_counts(sp, paths[2], 2)
+    app.dump_graphs(sp, paths[3], 2)
+    host_s = time.perf_counter() - t0
+    for a, b in ((paths[0], paths[2]), (paths[1], paths[3])):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise SystemExit("format_mers: %s differs from the host "
+                                 "path's" % os.path.basename(a))
+    for path in paths:
+        os.remove(path)
+    offs = torch.empty_like(sel.offs)
+    select_ms = cuda_ms(lambda: fm.launch_select(sel.table, k, thr,
+                                                 sel.ptrs, offs), 20)
+    buf = torch.empty(max(x.size for x in plan), dtype=torch.uint8,
+                      device=dev)
+    write_ms = cuda_ms(lambda: [fm.launch_write(sel, x, buf) for x in plan],
+                       10)
+    M = table.counts.numel()
+    nb = len(sel.ends) - 1
+    kept, text = int(sel.ends[-1, 2]), int(sel.ends[-1, :2].sum())
+    # each byte the work needs once: select reads the counts, the kept
+    # keys' counters and writes the blocks' sums; write reads the counts,
+    # the kept keys' counters and lanes and writes the text
+    select_bytes = 4 * M + 48 * kept + 24 * (nb + 1)
+    write_bytes = 4 * M + kept * (48 + 8 * len(table.lanes)) + text
+    out = {"keys": M, "kept": kept, "text_bytes": text, "slabs": len(plan),
+           "select_ms": select_ms, "select_bound_ms":
+           bytes_bound_ms(select_bytes), "write_ms": write_ms,
+           "write_bound_ms": bytes_bound_ms(write_bytes),
+           "call_ms": call_s * 1e3, "host_ms": host_s * 1e3, "card": smi}
+    log("phase 22 format_mers meta20x k=21: byte-identical to the host "
+        "path; %d keys, %d kept, %d B of text in %d slabs; select %.4f ms "
+        "(bound %.4f), the %d writes %.4f ms (bound %.4f); the call with "
+        "its copies and file writes %.1f ms, the host path %.1f ms"
+        % (M, kept, text, len(plan), select_ms, out["select_bound_ms"],
+           len(plan), write_ms, out["write_bound_ms"], out["call_ms"],
+           out["host_ms"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3225,6 +3325,9 @@ def main() -> int:
     t0 = time.perf_counter()
     prep = phase_prepare(smi)
     log("phase 21 prepare_reads ok [%.1f s]" % (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    fmt = phase_format_mers(smi)
+    log("phase 22 format_mers ok [%.1f s]" % (time.perf_counter() - t0))
     runs += [purge_run] + wide + mer + dist
     launches += sum(r["launches"] for r in [purge_run] + wide + mer + dist)
     runs += mesh_runs["runs"]
@@ -3254,6 +3357,14 @@ def main() -> int:
     log("prepare_reads launches on the app runs of phases 4-20: %d (%s)"
         % (prep_launches, ", ".join("%s %d" % (r["name"], r["prep_launches"])
                                     for r in runs if r.get("prep_launches"))))
+    # format_mers: counted run by run against each MeraculousCounter run's
+    # slab plan (phase_meraculous)
+    fm_runs = {r["name"]: r["format_mers"] for r in runs
+               if "format_mers" in r}
+    if not fm_runs:
+        raise SystemExit("the main path never launched format_mers")
+    log("format_mers launches on the MeraculousCounter runs: %s"
+        % json.dumps(fm_runs))
 
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "kmernator_tpu"))
@@ -3397,7 +3508,20 @@ def main() -> int:
         "shape": "meraculous_200k: 200,000 reads x 150 bp, k=21",
         "call_with_copies_ms": prep["meraculous_200k"][
             "call_with_copies_ms"],
-        "chunk": prep["filter_chunk"]}]}))
+        "chunk": prep["filter_chunk"]}, {
+        "name": "format_mers", "route": "cuda",
+        "source": "kmernator_tpu_torch/csrc/format_mers.cu",
+        "replaces": None,
+        "replaces_why": "the JAX package formats MeraculousCounter's text "
+                        "on the host from the table brought back",
+        "launches": fm_runs,
+        "ms": fmt["select_ms"] + fmt["write_ms"],
+        "plain_ms": fmt["host_ms"],
+        "bound_ms": fmt["select_bound_ms"] + fmt["write_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "shape": "meraculous-k21.meta20x's table: %d keys, %d kept, %d B "
+                 "of text" % (fmt["keys"], fmt["kept"], fmt["text_bytes"]),
+        "detail": fmt}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,12 +21,16 @@ places:
 - `build_extension_spectrum_mesh` (--mesh N) builds the spectrum on N
   shards of a torch device through parallel/mesh.py
   `extension_spectrum_mesh`: each shard's 13 key-run sums come from the
-  run-length kernel. `spectrum_from_device` carries its table to the host
-  KmerSpectrum the dumps read. Its inputs (`_padded_inputs`: codes, the
-  exact weights' goodness, the extension-quality mask, lengths) are built
-  on a CUDA device by the prepare_reads kernel from the reads' bytes
+  run-length kernel. Its inputs (`_padded_inputs`: codes, the exact
+  weights' goodness, the extension-quality mask, lengths) are built on a
+  CUDA device by the prepare_reads kernel from the reads' bytes
   (parallel/prepare_reads.py); the source builds them on the host, as the
-  port does on the CPU.
+  port does on the CPU. On a CUDA device the table stays there
+  (`DeviceTable`), and the format_mers kernels write the two files' text
+  from it (parallel/format_mers.py), keeping the keys of depth
+  `dump_threshold(min_depth)`; only the text comes back. On the CPU
+  `spectrum_from_device` carries the table to the host KmerSpectrum that
+  the purge and the dumps read, as the source does.
 - `build_extension_spectrum_streaming` stores the key of its spill record
   as `pack_keys` makes it: u64 for k <= 32, a big-endian byte string of 4W
   bytes above. The source stores u64 at every k, so its streaming engine
@@ -55,6 +59,7 @@ from kmernator_tpu_torch.ops.kmer import (decode_lanes, extract_kmers_flat,
 from kmernator_tpu_torch.ops.weights import window_weights, good_kmer_mask
 from kmernator_tpu_torch.parallel.mesh import (extension_spectrum_mesh,
                                                make_mesh)
+from kmernator_tpu_torch.parallel import format_mers
 from kmernator_tpu_torch.parallel.prepare_reads import prepare_reads
 from kmernator_tpu_torch.parallel.spectrum import KmerSpectrum, pack_keys, unpack_keys
 from kmernator_tpu_torch.utils import timers
@@ -64,6 +69,13 @@ from kmernator_tpu_torch.utils.options import (GeneralOptions, KmerBaseOptions,
                                          KmerSpectrumOptions, compose)
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+PURGE_DEPTH = 2     # the purge before the dumps (weak-map visibility)
+
+
+def dump_threshold(min_depth: int) -> int:
+    """The least count of a key in the two files: the purge of
+    PURGE_DEPTH, then each dump's counts >= min_depth."""
+    return max(PURGE_DEPTH, min_depth)
 
 
 def _extension_observations(rs: ReadSet, k: int, min_quality: int,
@@ -337,14 +349,15 @@ def spectrum_from_device(k: int, lanes, counts, ext) -> KmerSpectrum:
 
 def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
                                   output_base: int, min_kmer_quality: float,
-                                  n_devices: int, *,
-                                  device) -> KmerSpectrum:
+                                  n_devices: int, *, device):
     """The extension-tracking spectrum on n_devices shards of one torch
     device (the JAX app's sharded MeraculousCounter path): exact float64
     weights gate goodness; the inputs, windows, extensions, the exchange
     and the counting run on the device. The reads are padded to a
     multiple of the shards; a bucket overflow retries at twice the
-    capacity_factor, from 2.0 up to 32, as the JAX app does."""
+    capacity_factor, from 2.0 up to 32, as the JAX app does. Returns the
+    table on a CUDA device (format_mers.DeviceTable), a host KmerSpectrum
+    on the CPU."""
     with timers.span("apps.count_pass"):
         mesh = make_mesh(n_devices, device)
         with timers.span("apps.prepare", device=mesh.device):
@@ -372,6 +385,8 @@ def build_extension_spectrum_mesh(rs: ReadSet, k: int, min_quality: int,
                         "mesh bucket overflow even at capacity %g" % cap)
                 Log.warn("mesh bucket overflow — retrying with "
                          "capacity_factor %g" % cap)
+        if mesh.device.type == "cuda":
+            return format_mers.DeviceTable(lanes, counts, ext)
         with timers.span("table.to_host"):
             return spectrum_from_device(k, lanes, counts, ext)
 
@@ -476,15 +491,27 @@ def run(argv: List[str]) -> int:
             spectrum = build_extension_spectrum(
                 rs, k, opts.min_quality_score,
                 opts.fastq_output_base_quality, sopts.min_kmer_quality)
-    out = opts.output_file
+    count_path = "%s.mercount.m%d" % (opts.output_file, k)
+    graph_path = "%s.mergraph.m%d.D%d" % (opts.output_file, k,
+                                          sopts.min_depth)
     with timers.span("apps.output_pass"):
+        if isinstance(spectrum, format_mers.DeviceTable):
+            dev = spectrum.counts.device
+            with timers.span("apps.purge", device=dev):
+                sel = format_mers.select(spectrum, k,
+                                         dump_threshold(sopts.min_depth))
+            with timers.span("io.output", device=dev):
+                format_mers.write(sel, count_path, graph_path)
+            return 0
+        timers.count("table.keys", len(spectrum.keys))
         with timers.span("apps.purge"):
-            spectrum.purge_min_depth(2)  # weak-map visibility
+            spectrum.purge_min_depth(PURGE_DEPTH)
+        if timers.active():
+            timers.count("io.keys_dumped",
+                         int((spectrum.counts >= sopts.min_depth).sum()))
         with timers.span("io.output"):
-            dump_counts(spectrum, "%s.mercount.m%d" % (out, k),
-                        sopts.min_depth)
-            dump_graphs(spectrum, "%s.mergraph.m%d.D%d"
-                        % (out, k, sopts.min_depth), sopts.min_depth)
+            dump_counts(spectrum, count_path, sopts.min_depth)
+            dump_graphs(spectrum, graph_path, sopts.min_depth)
     return 0
 
 

@@ -11,12 +11,13 @@ parsed, when the tracer is enabled (`enable()`) or its `--debug` is 1 or
 more. While a run is open, each span records its name, its start and end
 (`time.perf_counter_ns`), the index of its parent span and the run's id,
 and `count` adds to the run's counters. The spans stay in memory. At the
-run's end they are reduced to the run's record (`records()`, the last 64
-runs): for each span name its calls, its total seconds, its self seconds
-(the total less the part its child spans cover) and the names of its
-parents, the device seconds of the spans given a device, and the run's
-counters; at `--debug 1` one line a name is logged, then the counters and
-the kernels' launches in the run.
+run's end they are reduced to the run's record (`records()`, the last
+1,024 runs: a benchmark window of sub-second jobs, read whole): for each
+span name its calls, its total seconds, its self seconds (the total less
+the part its child spans cover) and the names of its parents, the device
+seconds of the spans given a device, and the run's counters; at `--debug
+1` one line a name is logged, then the counters and the kernels' launches
+in the run.
 
 A span given `device=` (the torch device its work runs on) also records a
 pair of CUDA events around its work when that device is CUDA; the run's
@@ -49,12 +50,13 @@ from typing import Dict, List, Optional
 
 from kmernator_tpu_torch.utils.logging import Log
 
-KEEP = 64   # run records kept
+KEEP = 1024   # run records kept
 # the kernels' launch counters the run summary reads (module, attribute)
 LAUNCHES = (("parallel.run_length", "launches"),
             ("parallel.merge_sort", "launches"),
             ("parallel.hash_insert", "launches"),
-            ("parallel.prepare_reads", "launches"))
+            ("parallel.prepare_reads", "launches"),
+            ("parallel.format_mers", "launches"))
 
 _active = False       # a run is open: the one flag span() and count() test
 _enabled = False

@@ -9,9 +9,11 @@ the plain PyTorch versions. Tolerance: none for keys, counts, lookups and
 sorted lanes; table weights to 1e-6 of the total weight the table has
 taken in (both are differences of float64 prefix sums over a drain, which
 the card's scan rounds in another order than the CPU's, rounded to
-float32). The variant purge's marks and tables are bit-equal. The hash insert
-places keys in an order that depends on timing, so it is held to its plain
-version through the order-free invariants of `check_invariants`, exactly.
+float32). The variant purge's marks and tables are bit-equal, and the
+format_mers kernels' files byte-identical to the host path's dumps. The
+hash insert places keys in an order that depends on timing, so it is held
+to its plain version through the order-free invariants of
+`check_invariants`, exactly.
 """
 import os
 
@@ -1134,3 +1136,122 @@ def test_padded_inputs_on_the_card(cuda_device, n_devices):
     got = meraculous_counter._padded_inputs(rs, 21, 2, 33, 0.0, n_devices,
                                             device=cuda_device)
     _prepared_equal(got, want)
+
+
+def _table_on(t, dev):
+    from kmernator_tpu_torch.parallel.format_mers import DeviceTable
+    return DeviceTable([x.to(dev) for x in t.lanes], t.counts.to(dev),
+                       t.ext.to(dev))
+
+
+def _format_on_card(table, k, min_count, c, g, slab_bytes):
+    """select and write on the card; asserts the launches equal the slab
+    plan worked out on the host from the table's counts and counters."""
+    from kmernator_tpu_torch.parallel import format_mers as fm
+    ends = fm.block_ends(table.counts.cpu().numpy(), table.ext.cpu().numpy(),
+                         k, min_count)
+    want = fm.plan_slabs(ends, slab_bytes)
+    before = dict(fm.launches)
+    sel = fm.select(table, k, min_count)
+    plan = fm.write(sel, c, g, slab_bytes=slab_bytes)
+    torch.cuda.synchronize()
+    assert np.array_equal(sel.ends, ends)
+    assert plan == want
+    n = table.counts.numel()
+    assert fm.launches["select"] - before.get("select", 0) == int(n > 0)
+    assert fm.launches["write"] - before.get("write", 0) == len(plan)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 31, 32, 33, 64, 65, 101])
+@pytest.mark.parametrize("min_depth", [1, 2, 3])
+def test_format_mers_kernel_matches_host_dumps(cuda_device, tmp_path, k,
+                                               min_depth):
+    """The format_mers kernels' two files byte-identical to dump_counts and
+    dump_graphs of spectrum_from_device of the same table after the purge
+    of depth 2: counts and counters of 1 to 10 digits, palindromes at even
+    k, slabs of 64 KB (several a table)."""
+    import format_mers_cases as fmc
+    from kmernator_tpu_torch.apps import meraculous_counter as app
+    t = fmc.random_table(k, 6000, seed=k * 10 + min_depth)
+    c, g = str(tmp_path / "c"), str(tmp_path / "g")
+    plan = _format_on_card(_table_on(t, cuda_device), k,
+                           app.dump_threshold(min_depth), c, g, 64 << 10)
+    assert len(plan) > 2
+    assert fmc.read_pair(c, g) == fmc.host_dumps(t, k, min_depth,
+                                                 str(tmp_path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["none kept", "one key", "empty", "wide"])
+def test_format_mers_kernel_edge_tables(cuda_device, tmp_path, case):
+    """No key kept (two empty files), one key, no key at all (no launch),
+    and k = 320 with every key kept, whose blocks' text passes the
+    kernel's shared-memory stage and is written to device memory
+    directly."""
+    import format_mers_cases as fmc
+    from kmernator_tpu_torch.parallel.format_mers import DeviceTable
+    k = 320 if case == "wide" else 20
+    t = fmc.random_table(k, {"one key": 1, "wide": 700}.get(case, 50),
+                         seed=5)
+    if case == "empty":
+        t = DeviceTable([x[:0] for x in t.lanes], t.counts[:0], t.ext[:0])
+    elif case == "none kept":
+        t.counts.clamp_(max=1)
+    else:
+        t.counts.clamp_(min=2)
+    c, g = str(tmp_path / "c"), str(tmp_path / "g")
+    plan = _format_on_card(_table_on(t, cuda_device), k, 2, c, g, 4 << 20)
+    got = fmc.read_pair(c, g)
+    if case in ("one key", "wide"):
+        assert got == fmc.host_dumps(t, k, 2, str(tmp_path))
+        assert len(plan) == 1
+    else:
+        assert got == (b"", b"") and plan == []
+
+
+@pytest.mark.cuda
+def test_format_mers_meta20x(cuda_device, tmp_path):
+    """The benchmark's meraculous-k21.meta20x table (kbench/genmeta.py at
+    a fixed seed, counted on the card as MeraculousCounter --mesh 1 counts
+    it), written in the default slabs, byte-identical to the host dumps;
+    then the app's own run on the card: the same files, its launches
+    line's format_mers launches equal to its slabs, and the table no
+    longer carried to the host."""
+    import json
+    import format_mers_cases as fmc
+    from kbench import genmeta
+    from kmernator_tpu_torch.apps import meraculous_counter as app
+    from kmernator_tpu_torch.io.reads import load_reads
+    from kmernator_tpu_torch.parallel import format_mers as fm
+    from kmernator_tpu_torch.utils import timers
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "kbench", "traffic",
+            "meta20x.json")) as f:
+        traffic = json.load(f)
+    fq = str(tmp_path / "meta20x.fastq")
+    genmeta.write(traffic, 2147483701, fq)
+    table = app.build_extension_spectrum_mesh(
+        load_reads([fq]), 21, 2, 33, 0.0, 1, device=cuda_device)
+    assert isinstance(table, fm.DeviceTable)
+    assert table.counts.numel() > 3_000_000
+    c, g = str(tmp_path / "c"), str(tmp_path / "g")
+    plan = _format_on_card(table, 21, 2, c, g, fm.SLAB_BYTES)
+    assert len(plan) >= 4
+    want = fmc.host_dumps(table, 21, 2, str(tmp_path))
+    assert fmc.read_pair(c, g) == want
+    before = dict(fm.launches)
+    assert app.run(["--device", "cuda", "--mesh", "1", "--kmer-size", "21",
+                    "--debug", "1", "--out", str(tmp_path / "run"),
+                    fq]) == 0
+    rec = timers.records()[-1]
+    slabs = rec["counters"]["io.slabs"]
+    assert slabs == len(plan)
+    assert fm.launches["write"] - before["write"] == slabs
+    assert fm.launches["select"] - before["select"] == 1
+    assert "table.to_host" not in rec["spans"]
+    assert rec["spans"]["io.output"]["device_s"] > 0
+    assert rec["counters"]["io.keys_dumped"] == want[0].count(b"\n") // 2
+    assert fmc.read_pair(str(tmp_path / "run.mercount.m21"),
+                         str(tmp_path / "run.mergraph.m21.D2")) == want

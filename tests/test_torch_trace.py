@@ -311,3 +311,30 @@ def test_assembler_iteration_line(tmp_path, capsys):
     assert m, lines
     match, extend, total = (float(x) for x in m.groups())
     assert abs(match + extend - total) <= 0.0015
+
+
+def test_records_keep_a_window_of_short_jobs():
+    """The tracer keeps the last KEEP runs' records, and KEEP holds a
+    benchmark window of sub-second jobs (over a hundred in 40 s), whose
+    readers take one record a job."""
+    @timers.traced_run
+    def job():
+        timers.begin_run()
+        with timers.span("io.output"):
+            timers.count("io.slabs", 1)
+        return 0
+
+    assert timers.KEEP >= 1024
+    timers.clear()
+    timers.enable()
+    try:
+        for _ in range(timers.KEEP + 3):
+            assert job() == 0
+    finally:
+        timers.disable()
+    records = timers.records()
+    timers.clear()
+    assert len(records) == timers.KEEP
+    assert [r["id"] for r in records] == list(
+        range(records[0]["id"], records[0]["id"] + timers.KEEP))
+    assert all(r["counters"] == {"io.slabs": 1} for r in records)
