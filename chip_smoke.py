@@ -55,8 +55,9 @@ started together) and drives the port's paths on the card:
      `extension_spectrum_mesh` (CUDA events) and peak device memory;
  12. the nucleating assembler `--mesh 1` through its CLI entry point
      (`kmernator_tpu_torch.apps.nucleating_assembler.run`), whose read
-     index is built and queried on the card (parallel/dist_match.py, no
-     kernel of csrc/): phase 5's input at k=31 with 50 seeds and at k=45
+     index is built and queried on the card (parallel/dist_match.py; its
+     input from one prepare_reads launch, no other kernel of csrc/): phase
+     5's input at k=31 with 50 seeds and at k=45
      (two-lane keys) with 25, each seed the first 100 bp of a read
      drawn with numpy, 5 iterations; the contigs byte-identical to the JAX
      package's host engine (`python -m
@@ -182,8 +183,9 @@ started together) and drives the port's paths on the card:
      bound, the whole call (the copies to the card and the kernel, and
      for the chunk the copies back) and the host steps (host clock). Its
      launches on the main path are counted run by run in phases 4-20: each
-     FilterReads run launches it once a streamed chunk (none on the
-     in-memory engine) and each MeraculousCounter run once.
+     FilterReads run launches it once a streamed chunk (once a run on the
+     in-memory engine), and each MeraculousCounter and assembler run
+     once.
  22. the format_mers kernels (`phase_format_mers`) at the benchmark's
      table: meraculous-k21.meta20x's input (kbench/genmeta.py at a fixed
      seed) counted on the card as MeraculousCounter --mesh 1 counts it,
@@ -759,15 +761,17 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
     if launches <= 0:
         raise SystemExit("%s: the run-length kernel was never launched"
                          % name)
-    # the streaming engines (--streaming, or an input past the auto-stream
-    # size) prepare each chunk with one prepare_reads launch; the in-memory
-    # engine builds its arrays on the host and launches none
+    # every --mesh engine builds its padded arrays in _chunk_padded, one
+    # prepare_reads launch a call: the streaming engines (--streaming, or an
+    # input past the auto-stream size) once a chunk, the in-memory engine
+    # once a run
     auto_mb = int(extra_env.get("KMTPU_AUTO_STREAM_MB", "2"))
     streamed = ("--streaming" in port_args
                 or os.path.getsize(fq) > (auto_mb << 20))
-    if prep_launches != len(chunk_calls) or (prep_launches > 0) != streamed:
-        raise SystemExit("%s: %d streamed chunks (streaming engine: %s), "
-                         "but %d prepare_reads launches"
+    if prep_launches != len(chunk_calls) or prep_launches < 1 or (
+            not streamed and prep_launches != 1):
+        raise SystemExit("%s: %d _chunk_padded calls (streaming engine: "
+                         "%s), but %d prepare_reads launches"
                          % (name, len(chunk_calls), streamed, prep_launches))
     if len(tables) != 1 or tables[0].drains < 1 or tables[0].D != mesh \
             or any(x.device.type != "cuda" for x in tables[0].table_lanes):
@@ -796,7 +800,8 @@ def phase_app(name: str, fq: str, n_reads: int, rl, extra_env, k: int = K,
                             100 * purge["device_ms"] / 1e3 / t_port))
     peak = torch.cuda.max_memory_allocated() / 2**30
     log("%s: byte-identical (%s); k=%d (%d-lane keys), run_length launches "
-        "%d, prepare_reads launches %d (one a chunk); table %d rows on %s, "
+        "%d, prepare_reads launches %d (one a _chunk_padded call); table "
+        "%d rows on %s, "
         "%d drains, %d singletons purged; peak device memory %.2f GiB"
         % (name, ", ".join(want), k, lanes, launches, prep_launches, sp.cap,
            sp.table_lanes[0].device, sp.drains, sp.purged_singletons, peak))
@@ -1071,15 +1076,18 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
     card, against the JAX package's host engine (its k-mer read index, no
     mesh; a subprocess; host_from: an earlier run's result whose seeds and
     host outputs, kept by keep_host, stand for this run's): the contig
-    files byte-identical, the read index built on the card, one match a
-    iteration, no kernel launched. Prints the index's rows and distinct
+    files byte-identical, the read index built on the card from one
+    prepare_reads launch, one match a iteration, no other kernel launched.
+    Prints the index's rows and distinct
     keys, queries and hits a iteration, the device time of the index build,
     of its shard exchange and of each match (CUDA events), peak device
-    memory, both wall times, and the port's host seconds by step. seeds: a
+    memory, both wall times, and the port's host seconds by step
+    (prepare_reads up to the end of its kernel). seeds: a
     FASTA of n_seeds seeds to take (else drawn here, or an earlier
     host_from's); args: more flags for both engines."""
     import kmernator_tpu_torch.apps.nucleating_assembler as app
     from kmernator_tpu_torch.parallel import dist_match as dm
+    from kmernator_tpu_torch.parallel import prepare_reads as pr
     if seeds is None and host_from is None:
         seeds = os.path.join(WORK, name + "-seeds.fa")
         draw_seeds(fq, n_reads, seeds, n_seeds)
@@ -1089,8 +1097,7 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
     shard_events = {}
     steps = {app: ("load_reads", "ArtifactFilter", "apply_artifact_filter",
                    "screen_pools", "extend_contigs", "write_fasta"),
-             dm: ("pack_readset", "window_weights", "good_kmer_mask",
-                  "ragged_to_padded", "mesh_match_pools")}
+             dm: ("prepare_reads", "mesh_match_pools")}
     plain = {(mod, n): getattr(mod, n) for mod, names in steps.items()
              for n in names}
     plain_build, plain_match = dm.build_index, dm.match_shards
@@ -1101,6 +1108,8 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
             try:
                 return plain[(mod, step)](*a, **kw)
             finally:
+                if step == "prepare_reads":   # its kernel runs on after
+                    torch.cuda.synchronize()  # the launch returns
                 stages[step] = (stages.get(step, 0.0)
                                 + time.perf_counter() - t0)
         return call
@@ -1149,6 +1158,7 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
     torch.cuda.reset_peak_memory_stats()
     counters = (rl.launches, dict(ms.launches), hi.launches)
     try:
+        pr.launches = 0
         t0 = time.perf_counter()
         rc = app.run(["--device", "cuda", "--mesh", str(mesh),
                       "--contig-file", seeds, "--max-iterations",
@@ -1156,6 +1166,7 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
                      + ["--out", port_out, str(k), fq])
         torch.cuda.synchronize()
         t_port = time.perf_counter() - t0
+        prep_launches = pr.launches
     finally:
         for (mod, step), fn in plain.items():
             setattr(mod, step, fn)
@@ -1165,7 +1176,11 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
     if rc != 0:
         raise SystemExit("%s: the port's assembler exited %d" % (name, rc))
     if (rl.launches, dict(ms.launches), hi.launches) != counters:
-        raise SystemExit("%s: the assembler's path launched a kernel" % name)
+        raise SystemExit("%s: the assembler's path launched a kernel other "
+                         "than prepare_reads" % name)
+    if prep_launches != 1:
+        raise SystemExit("%s: %d prepare_reads launches, where the read "
+                         "index takes one" % (name, prep_launches))
     oracle = resolved(host_from) or asm_oracle(name, fq, k, seeds,
                                                iterations, args, {})
     host_out, t_host = oracle["host_out"], oracle["host_s"]
@@ -1197,7 +1212,7 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
         "bp); --mesh %d, k=%d (%d-lane keys); index %d rows, %d distinct "
         "keys; build %.1f ms of device time (CUDA events); the shard "
         "exchange (the build's routing, the queries' owner hash) %.1f ms; "
-        "%d overflow retries; no kernel launched; "
+        "%d overflow retries; prepare_reads launches 1; "
         "peak device memory %.2f GiB"
         % (name, len(want), len(lengths), grew, max(lengths), mesh, k,
            index["lanes"], index["rows"], index["distinct"],
@@ -1221,7 +1236,8 @@ def phase_assembler(name: str, fq: str, n_reads: int, rl, ms, hi, k: int,
             "port_s": t_port, "host_s": t_host, "host_out": host_out,
             "reads": n_reads, "peak_gib": peak, "index": index,
             "exchange_ms": exchange_ms, "retries": len(builds) - 1,
-            "matches": matches, "stages_s": stages}
+            "prep_launches": prep_launches, "matches": matches,
+            "stages_s": stages}
 
 
 def count_codes(seed: int = 11):
@@ -3349,14 +3365,17 @@ def main() -> int:
                          "kernel at every lane count 1-5 (or the counts "
                          "by lane miss some of its %d launches): %s"
                          % (launches, by_lanes))
-    # prepare_reads: counted run by run (one a streamed chunk, one a
-    # MeraculousCounter run); phase 18's ranks run in processes of their own
-    prep_launches = sum(r.get("prep_launches", 0) for r in runs)
+    # prepare_reads: counted run by run (one a streamed chunk, one an
+    # in-memory FilterReads, MeraculousCounter or assembler run); phase 18's
+    # ranks run in processes of their own
+    asm_runs = asm + [mesh_runs["asm"], wide_asm]
+    prep_launches = sum(r.get("prep_launches", 0) for r in runs + asm_runs)
     if prep_launches <= 0:
         raise SystemExit("the main path never launched prepare_reads")
     log("prepare_reads launches on the app runs of phases 4-20: %d (%s)"
         % (prep_launches, ", ".join("%s %d" % (r["name"], r["prep_launches"])
-                                    for r in runs if r.get("prep_launches"))))
+                                    for r in runs + asm_runs
+                                    if r.get("prep_launches"))))
     # format_mers: counted run by run against each MeraculousCounter run's
     # slab plan (phase_meraculous)
     fm_runs = {r["name"]: r["format_mers"] for r in runs
@@ -3381,10 +3400,10 @@ def main() -> int:
         r["name"]: {key: v for key, v in r.items()
                     if key not in ("name", "host_out", "host_log")}
         for r in runs}))
-    log("assembler runs (no kernel launched): %s" % json.dumps({
+    log("assembler runs (one prepare_reads launch each): %s" % json.dumps({
         r["name"]: {key: v for key, v in r.items()
                     if key not in ("name", "host_out", "seeds")}
-        for r in asm + [mesh_runs["asm"], wide_asm]}))
+        for r in asm_runs}))
     log("TnfDistance, BamSort and small-app runs (no kernel launched): %s"
         % json.dumps({"tnf": tnf_run, "bam": bam_run, "small": small}))
     log("device library and entry points (phase 19): %s"

@@ -21,9 +21,12 @@ source in its package imports and in these places:
   (--streaming --distributed, with grow-on-pressure and its pass-2
   lookups on the device) count and look up on a torch device through
   MeshStreamingSpectrum. Those that touch the device take it as a
-  keyword, threaded from `run`. On a CUDA device `_chunk_padded` builds a
-  chunk's padded arrays with the prepare_reads kernel
-  (parallel/prepare_reads.py); the source builds them on the host.
+  keyword, threaded from `run`. `_chunk_padded` builds the padded arrays
+  of a streamed chunk, or of the in-memory --mesh engine's reads, with
+  parallel/prepare_reads.py (its kernel on a CUDA device); the source
+  builds them on the host. The in-memory --mesh engine sizes its shards
+  by the good windows of the reads not discarded, those the table can
+  receive; the source counts the discarded reads' good windows too.
 - Across processes the table is the port's `multihost.global_mesh`, one
   shard a process on its `--device`, and the processes talk over
   torch.distributed with gloo (`multihost.initialize`), so the shard
@@ -68,7 +71,7 @@ from kmernator_tpu_torch.ops.trim import (ReadTrims, score_and_trim,
                                           pick_all_passing)
 from kmernator_tpu_torch.ops.weights import window_weights, good_kmer_mask
 from kmernator_tpu_torch.parallel.device_spectrum import (
-    auto_mesh_batch, pack_readset, padded_to_ragged, ragged_to_padded)
+    auto_mesh_batch, padded_to_ragged)
 from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.mesh_stream import MeshStreamingSpectrum
 from kmernator_tpu_torch.parallel.prepare_reads import prepare_reads
@@ -252,27 +255,20 @@ def window_count_lookup_mesh(rs, k: int, min_depth: int, min_quality: int,
     if multi:
         # all processes must agree on the padded read length
         L = multihost.allreduce_max_int(L)
-    codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
+    codes, good2d, lengths, weights2d, _, n_good = _chunk_padded(
+        rs, k, L, min_quality, output_base, min_kmer_quality,
+        track_weights=True, device=device)
     B = codes.shape[0]
     NW = L - k + 1
-    # exact good mask from the host recurrence
-    markup = BASE_CODE[rs.seq] == 4
-    p = rs.base_probabilities(min_quality, output_base)
-    w = window_weights(p, rs.offsets, markup, k)
-    exact_good = good_kmer_mask(w, min_kmer_quality)
     nw = np.maximum(rs.lengths() - k + 1, 0)
     woff = np.concatenate([[0], np.cumsum(nw)])
-    good2d = ragged_to_padded(exact_good, nw, NW, fill=False)
-    good2d &= ~rs.discarded[:, None]
-    weights2d = ragged_to_padded(w.astype(np.float32), nw, NW, fill=0.0)
 
     if multi:
         mesh = multihost.global_mesh(device)
         # good windows summed over the processes size the shards
-        n_good = int(multihost.allgather_ints([int(exact_good.sum())]).sum())
+        n_good = int(multihost.allgather_ints([n_good]).sum())
     else:
         mesh = make_mesh(n_devices, device)
-        n_good = int(exact_good.sum())
     D, S = mesh.size, mesh.local
     if capacity <= 0:
         capacity = max(int(np.ceil(n_good / D * 1.25)), 4096)
@@ -731,9 +727,11 @@ def _chunk_observations(rs: ReadSet, k: int, min_quality: int,
 def _chunk_padded(rs, k: int, L: int, min_quality: int, output_base: int,
                   min_kmer_quality: float, subtract_keys=None,
                   track_weights: bool = False, *, device):
-    """One streamed chunk -> padded batch arrays: codes [B, L] u8, good2d
-    [B, NW] bool (exact goodness), lengths [B] i32, weights2d [B, NW] f32
-    or None, and the chunk's (raw, good) window totals. On a CUDA `device`
+    """A block of reads (a streamed chunk, or the in-memory --mesh
+    engine's reads) -> padded batch arrays: codes [B, L] u8, good2d [B, NW]
+    bool (exact goodness, false for a discarded read), lengths [B] i32,
+    weights2d [B, NW] f32 or None, and the block's (raw, good) window
+    totals (good: the true entries of good2d). On a CUDA `device`
     the prepare_reads kernel builds them on the card and they come back to
     the host in one copy each, every device buffer freed before the
     return; on the CPU the host's NumPy steps do."""

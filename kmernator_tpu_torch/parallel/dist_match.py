@@ -43,13 +43,12 @@ from kmernator_tpu_torch.ops.kmer import (SENTINEL_LANE, SENTINEL_WORD,
                                           decode_lanes,
                                           encode_lanes, extract_kmers_flat,
                                           nwords)
-from kmernator_tpu_torch.ops.weights import good_kmer_mask, window_weights
 from kmernator_tpu_torch.parallel.device_spectrum import (
-    extract_canonical_cols, pack_readset, ragged_to_padded, search_lanes,
-    sort_lanes)
+    extract_canonical_cols, search_lanes, sort_lanes)
 from kmernator_tpu_torch.parallel.mesh import (
     Mesh, bucket_loads, bucket_slots, exchange, owners, plane_width,
     scatter_plane)
+from kmernator_tpu_torch.parallel.prepare_reads import prepare_reads
 
 Shard = Tuple[List[torch.Tensor], torch.Tensor]
 
@@ -202,11 +201,12 @@ def match_fn(mesh: Mesh, k: int, max_ids: int = 16, min_depth: int = 0):
 
 class MeshReadIndex:
     """The read index on the mesh's shards, a drop-in for
-    ops.match.KmerReadIndex (the JAX `MeshReadIndex`). The host side is the
-    JAX one: the exact good mask from window_weights, discarded reads
-    masked out, the reads padded to a multiple of D; the codes, mask and
-    lengths go to the device once. A bucket overflow retries the build at
-    twice the capacity_factor, up to 32."""
+    ops.match.KmerReadIndex (the JAX `MeshReadIndex`). Its input is the
+    JAX one, built by prepare_reads on the mesh's device (its kernel on a
+    CUDA device, the host's steps on the CPU): the codes, the exact good
+    mask with discarded reads masked out and the lengths, the reads
+    padded with empty rows to a multiple of D. A bucket overflow retries
+    the build at twice the capacity_factor, up to 32."""
 
     def __init__(self, mesh: Mesh, rs, k: int, min_depth: int = 2,
                  min_quality: int = 3, output_base: int = 33,
@@ -216,28 +216,10 @@ class MeshReadIndex:
         self.mesh = mesh
         self.max_ids = max_ids
         self.min_depth = min_depth
-        L = max(rs.max_length(), k)
-        codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
-        NW = L - k + 1
-        codes_raw = BASE_CODE[rs.seq]
-        markup = codes_raw == 4
-        p = rs.base_probabilities(min_quality, output_base)
-        w = window_weights(p, rs.offsets, markup, k)
-        exact_good = good_kmer_mask(w, min_kmer_quality)
-        nw = np.maximum(rs.lengths() - k + 1, 0)
-        good2d = ragged_to_padded(exact_good, nw, NW, fill=False)
-        good2d &= ~rs.discarded[:, None]
-        del codes_raw, markup, p, w, exact_good
-        pad = (-codes.shape[0]) % mesh.size
-        if pad:
-            codes = np.concatenate([codes, np.zeros((pad, L), codes.dtype)])
-            good2d = np.concatenate([good2d, np.zeros((pad, NW), bool)])
-            lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
-
-        def dev(a):
-            return torch.from_numpy(a).to(mesh.device)
-
-        codes, good2d, lengths = dev(codes), dev(good2d), dev(lengths)
+        codes, good2d, lengths = prepare_reads(
+            rs, k, max(rs.max_length(), k), min_quality, output_base,
+            min_kmer_quality, rows=-(-rs.n // mesh.size) * mesh.size,
+            device=mesh.device)[:3]
         cap = capacity_factor
         while True:
             self._shards, overflow = build_index(mesh, k, codes, good2d,

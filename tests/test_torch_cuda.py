@@ -1138,6 +1138,60 @@ def test_padded_inputs_on_the_card(cuda_device, n_devices):
     _prepared_equal(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_devices", [1, 2, 4])
+def test_read_index_inputs_on_the_card(cuda_device, n_devices):
+    """The assembler's read index built from the kernel's arrays, padded
+    on the card to a multiple of D (701 reads), against the CPU's: every
+    shard's key lanes and read ids bit-equal, one launch."""
+    from kmernator_tpu_torch.parallel import dist_match as dm
+    rs = cases.edge_cases(31, seed=7, long_read=300)
+    assert rs.n % 2
+    want = dm.MeshReadIndex(make_mesh(n_devices, "cpu"), rs, 31)._shards
+    before = pr.launches
+    got = dm.MeshReadIndex(make_mesh(n_devices, "cuda"), rs, 31)._shards
+    assert pr.launches == before + 1 and len(got) == len(want)
+    assert sum(rid.numel() for _, rid in want) > 10_000
+    for (g_lanes, g_rid), (w_lanes, w_rid) in zip(got, want):
+        for g, w in zip(g_lanes + [g_rid], w_lanes + [w_rid]):
+            assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_in_memory_engines_launch_the_kernel_once(cuda_device, tmp_path):
+    """FilterReads' in-memory --mesh 1 engine and the assembler's --mesh 1
+    build their input with one prepare_reads launch a run on the card,
+    and write the same bytes as --device cpu."""
+    from kmernator_tpu_torch.apps import filter_reads
+    from kmernator_tpu_torch.apps import nucleating_assembler as asm
+    fq = str(tmp_path / "r.fastq")
+    genome = _wide_reads(fq, 31, n_reads=2000, genome_bp=20000)
+    seeds = str(tmp_path / "s.fa")
+    with open(seeds, "wb") as f:
+        for i, s in enumerate((400, 5300, 12200)):
+            f.write(b">seed%d\n%s\n" % (i, genome[s:s + 120]))
+    runs = {
+        "filter": lambda dev, out: filter_reads.run(
+            ["--device", dev, "--mesh", "1", "--kmer-scoring-type",
+             "MEDIAN", "--mask-simple-repeats", "0", "--min-read-length",
+             "25", "--out", out, "31", fq]),
+        "asm": lambda dev, out: asm.run(
+            ["--device", dev, "--mesh", "1", "--contig-file", seeds,
+             "--max-iterations", "2", "--out", out + ".fa", "31", fq])}
+    for name, run in runs.items():
+        for dev in ("cpu", "cuda"):
+            before = pr.launches
+            assert run(dev, str(tmp_path / (name + dev))) == 0
+            assert pr.launches - before == (dev == "cuda"), (name, dev)
+        outs = sorted(n[len(name + "cpu"):] for n in os.listdir(tmp_path)
+                      if n.startswith(name + "cpu"))
+        assert outs, name
+        for out in outs:
+            a = open(str(tmp_path / (name + "cpu" + out)), "rb").read()
+            b = open(str(tmp_path / (name + "cuda" + out)), "rb").read()
+            assert a == b and a, (name, out)
+
+
 def _table_on(t, dev):
     from kmernator_tpu_torch.parallel.format_mers import DeviceTable
     return DeviceTable([x.to(dev) for x in t.lanes], t.counts.to(dev),

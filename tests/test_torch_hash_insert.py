@@ -8,14 +8,12 @@ of `check_invariants` by tests/test_torch_cuda.py and chip_smoke.py, and
 this file checks that the invariants hold for any insertion order and fail
 on broken tables. Tolerance: none, integers.
 
-Each test carries its own time limit (`time_limit`): SIGALRM where the test
-runs in the main thread, and a subprocess timeout for the bench.
+Each test runs under the suite's one time limit (the repository's root
+conftest.py); the bench's subprocess has a timeout of its own.
 """
 import os
-import signal
 import subprocess
 import sys
-import threading
 
 import numpy as np
 import jax.numpy as jnp
@@ -31,25 +29,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = hi.edge_cases()
 JAX_CASES = ["jax_test", "n1", "all_equal", "full_table", "wraparound",
              "sentinel_quirk", "sentinel_mixed", "cap_1"]
-
-
-@pytest.fixture(autouse=True)
-def time_limit():
-    """Fail a test that runs past 60 s instead of letting it hang."""
-    if threading.current_thread() is not threading.main_thread():
-        yield
-        return
-
-    def expire(signum, frame):
-        raise TimeoutError("test ran past its 60 s limit")
-
-    old = signal.signal(signal.SIGALRM, expire)
-    signal.setitimer(signal.ITIMER_REAL, 60)
-    try:
-        yield
-    finally:
-        signal.setitimer(signal.ITIMER_REAL, 0)
-        signal.signal(signal.SIGALRM, old)
 
 
 def _plain(keys, cap):

@@ -90,3 +90,61 @@ def test_mesh_n_byte_identical(tmp_path, mixed, capfd, D, k, extra):
                    for name, log in logs.items()}
         assert removed["jax"] == removed["torch"]
         assert len(removed["torch"]) == 1 and int(removed["torch"][0]) > 0
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_in_memory_mesh_sized_without_discarded_reads(tmp_path, capfd,
+                                                      monkeypatch, D):
+    """The in-memory --mesh engine sizes its shards by the good windows of
+    the reads not discarded (1.25x a shard's share), where the JAX app
+    also counts the discarded reads'. On reads of which four in five are
+    discarded as artifacts (an adapter then 76 random bases, every window
+    good) and the rest mostly distinct keys, the smaller shards, past the
+    4,096-row floor, hold every key: no singleton purged, and the output
+    files the host engine's."""
+    rng = np.random.default_rng(29)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    adapter = b"ACGTACGTTTGACCAGTCAGGACT"
+    art = tmp_path / "adapter.fasta"
+    art.write_bytes(b">custom\n%s\n" % adapter)
+    genome = rng.integers(0, 4, 1000, dtype=np.uint8)
+    fq = str(tmp_path / "in.fastq")
+    with open(fq, "wb") as f:
+        for i in range(2000):
+            if i % 5:
+                seq = adapter + acgt[rng.integers(0, 4, 76)].tobytes()
+            elif i % 10:
+                s = int(rng.integers(0, 900))
+                seq = acgt[genome[s:s + 100]].tobytes()
+            else:
+                seq = acgt[rng.integers(0, 4, 100)].tobytes()
+            f.write(b"@d%d\n%s\n+\n%s\n" % (i, seq, b"I" * 100))
+    tables = []
+
+    class Recorded(torch_app.MeshStreamingSpectrum):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            tables.append(self)
+
+    monkeypatch.setattr(torch_app, "MeshStreamingSpectrum", Recorded)
+    flags = BASE + ["--artifact-reference-file", str(art), "--verbose", "1"]
+    logs = {}
+    for name, mesh in (("host", []), ("mesh", ["--mesh", str(D)])):
+        capfd.readouterr()
+        assert torch_app.run(["--device", "cpu"] + mesh + ["--out",
+                             str(tmp_path / name)] + flags
+                             + ["31", fq]) == 0
+        logs[name] = capfd.readouterr().err
+    discarded = re.findall(r"filter affected \(trimmed/removed\) (\d+)",
+                           logs["mesh"])
+    assert discarded and int(discarded[0]) >= 1600
+    (sp,) = tables
+    n_good = 400 * 70     # the kept reads' windows, all of them good
+    assert sp.D == D and sp.cap == int(np.ceil(n_good / D * 1.25)) > 4096
+    assert sp.purged_singletons == 0 and not PURGED.findall(logs["mesh"])
+    want, got = (_outputs(str(tmp_path), "host"),
+                 _outputs(str(tmp_path), "mesh"))
+    assert want and set(got) == set(want)
+    for name in want:
+        assert got[name] == want[name], name
+    assert any(len(v) for v in got.values())

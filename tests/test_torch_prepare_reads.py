@@ -5,9 +5,11 @@ which must give every raw byte what the host steps give it; its window
 chain (rolling counts of bad bases, the recompute points) is replayed in
 Python floats by `schedule_plain` (tests/prepare_reads_cases.py), held
 bit-equal to the host's `window_weights` and `good_kmer_mask`. On a CPU
-device `_chunk_padded` (FilterReads) and `_padded_inputs`
-(MeraculousCounter) return what their host NumPy steps returned before
-the kernel existed, copied below. The kernel itself is held to the plain
+device its four callers, `_chunk_padded` (FilterReads' streaming engines),
+`_padded_inputs` (MeraculousCounter), FilterReads' in-memory --mesh engine
+(`window_count_lookup_mesh`) and the assembler's read index
+(`MeshReadIndex`), hand on what their host NumPy steps built before they
+called prepare_reads, copied below. The kernel itself is held to the plain
 version on the card by tests/test_torch_cuda.py. Tolerance: none.
 """
 import numpy as np
@@ -15,6 +17,7 @@ import pytest
 import torch
 
 from kmernator_tpu_torch.apps import filter_reads, meraculous_counter
+from kmernator_tpu_torch.parallel import dist_match
 from kmernator_tpu_torch.io.reads import BASE_CODE
 from kmernator_tpu_torch.ops.extensions import EXT_MIN_QUALITY
 from kmernator_tpu_torch.ops.kmer import extract_kmers_flat
@@ -24,6 +27,7 @@ from kmernator_tpu_torch.ops.weights import (good_kmer_mask,
 from kmernator_tpu_torch.parallel import prepare_reads as pr
 from kmernator_tpu_torch.parallel.device_spectrum import (pack_readset,
                                                           ragged_to_padded)
+from kmernator_tpu_torch.parallel.mesh import make_mesh
 from kmernator_tpu_torch.parallel.spectrum import pack_keys
 
 import prepare_reads_cases as cases
@@ -84,6 +88,55 @@ def host_padded_inputs(rs, k, min_quality, output_base, min_kmer_quality,
         ext_ok2d = np.concatenate([ext_ok2d, np.zeros((pad, L), bool)])
         lengths = np.concatenate([lengths, np.zeros(pad, np.int32)])
     return codes, good2d, ext_ok2d, lengths
+
+
+def host_mesh_inputs(rs, k, min_quality, output_base, min_kmer_quality):
+    """FilterReads' in-memory --mesh engine (`window_count_lookup_mesh`)
+    as the host built its input: codes, good2d, lengths, weights2d and the
+    good windows that sized its shards (discarded reads' among them)."""
+    L = max(rs.max_length(), k)
+    codes, _, lengths = pack_readset(rs, L, min_quality, output_base)
+    NW = L - k + 1
+    markup = BASE_CODE[rs.seq] == 4
+    p = rs.base_probabilities(min_quality, output_base)
+    w = window_weights(p, rs.offsets, markup, k)
+    exact_good = good_kmer_mask(w, min_kmer_quality)
+    nw = np.maximum(rs.lengths() - k + 1, 0)
+    good2d = ragged_to_padded(exact_good, nw, NW, fill=False)
+    good2d &= ~rs.discarded[:, None]
+    weights2d = ragged_to_padded(w.astype(np.float32), nw, NW, fill=0.0)
+    return codes, good2d, lengths, weights2d, int(exact_good.sum())
+
+
+def host_read_index_inputs(rs, k, min_quality, output_base,
+                           min_kmer_quality, n_devices):
+    """The assembler's `MeshReadIndex` as the host built its input: the
+    in-memory engine's codes, good2d and lengths, padded with empty rows to
+    a multiple of n_devices."""
+    codes, good2d, lengths = host_mesh_inputs(
+        rs, k, min_quality, output_base, min_kmer_quality)[:3]
+    pad = (-codes.shape[0]) % n_devices
+    return (np.pad(codes, ((0, pad), (0, 0))),
+            np.pad(good2d, ((0, pad), (0, 0))), np.pad(lengths, (0, pad)))
+
+
+class _Table:
+    """Stands in for MeshStreamingSpectrum in `window_count_lookup_mesh`:
+    keeps the capacity and every batch it is handed, and looks up 0."""
+
+    made = []
+
+    def __init__(self, mesh, k, capacity):
+        self.capacity = capacity
+        self.batches = []
+        self.purged_singletons = 0
+        _Table.made.append(self)
+
+    def add_batch(self, codes, good2d, lengths, weights2d=None):
+        self.batches.append((codes, good2d, lengths, weights2d))
+
+    def lookup_batch(self, codes, want, lengths, min_count):
+        return np.zeros(want.shape, np.int64)
 
 
 def _same(got, want):
@@ -197,6 +250,57 @@ def test_padded_inputs_on_the_cpu_as_before(n_devices, k):
         _same(g.numpy(), w)
     assert got.totals.tolist() == [
         int(np.maximum(rs.lengths() - k + 1, 0).sum()), int(want[1].sum())]
+
+
+@pytest.mark.parametrize("n_devices", [1, 2])
+@pytest.mark.parametrize("k", [31, 63])
+def test_in_memory_mesh_inputs_on_the_cpu_as_before(monkeypatch, n_devices,
+                                                    k):
+    """The arrays the in-memory --mesh engine hands its shard tables,
+    batch by batch, on reads shorter than k and discarded reads; its
+    shards are sized by the good windows of the reads not discarded (the
+    host steps counted the discarded reads' too)."""
+    rs = cases.edge_cases(k, seed=6)
+    assert rs.discarded.any() and (rs.lengths() < k).any()
+    monkeypatch.setattr(filter_reads, "MeshStreamingSpectrum", _Table)
+    _Table.made = []
+    batch = 128
+    filter_reads.window_count_lookup_mesh(
+        rs, k, 2, 3, 33, 0.10, n_devices, batch_reads=batch,
+        device=torch.device("cpu"))
+    (table,) = _Table.made
+    want = host_mesh_inputs(rs, k, 3, 33, 0.10)
+    assert len(table.batches) == -(-rs.n // batch)
+    for i, w in enumerate(want[:4]):
+        got = np.concatenate([b[i] for b in table.batches])
+        _same(got[:rs.n], w)
+        assert not got[rs.n:].any()
+    n_good = int(want[1].sum())
+    assert 0 < n_good < want[4]
+    assert table.capacity == max(int(np.ceil(n_good / n_devices * 1.25)),
+                                 4096)
+
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4])
+def test_read_index_inputs_on_the_cpu_as_before(monkeypatch, n_devices):
+    """The padded arrays `MeshReadIndex` builds its index from, on a read
+    count that is no multiple of 2 or 4."""
+    rs = cases.edge_cases(31, seed=7, long_read=300)
+    assert rs.n % 2 and rs.discarded.any()
+    seen = []
+
+    def build_index(mesh, k, codes, good2d, lengths, capacity_factor):
+        seen.append((mesh.size, codes, good2d, lengths))
+        return [], 0
+
+    monkeypatch.setattr(dist_match, "build_index", build_index)
+    dist_match.MeshReadIndex(make_mesh(n_devices, "cpu"), rs, 31)
+    ((size, *got),) = seen
+    assert size == n_devices and got[0].shape[0] % n_devices == 0
+    for g, w in zip(got, host_read_index_inputs(rs, 31, 3, 33, 0.10,
+                                                n_devices)):
+        assert g.device.type == "cpu"
+        _same(g.numpy(), w)
 
 
 def test_refusals():
