@@ -16,7 +16,9 @@ tensors.  Semantics preserved exactly:
    discarded reads (ref: src/Sequence.cpp:290-328,729-779)
 
 Copied for kmernator_tpu_torch from kmernator_tpu/io/reads.py; it differs
-from its source only in its package imports.
+from its source in its package imports and in `identify_pairs`, which
+matches the names the sequential pass leaves with array passes, in place of
+a loop over the reads, and records the tracer's span `io.pairs`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from kmernator_tpu_torch.utils import timers
 
 REF_QUAL = 127            # ref: src/config.h:141
 PRINT_REF_QUAL = 103      # ref: src/config.h:140 (33 + 70)
@@ -283,86 +287,90 @@ class ReadSet:
         return rn.astype(np.int64)
 
     def identify_pairs(self) -> int:
-        """ref: src/ReadSet.cpp:186-260 identifyPairs()."""
-        pairs: List[List[int]] = []
+        """ref: src/ReadSet.cpp:186-260 identifyPairs(): the sequential
+        pass pairs neighbours, then the reads it left are matched by common
+        name. Both are array passes; the entries come in the reference's
+        order: the sequential pairs, then one entry a read that opens or
+        stays alone, in read order."""
+        with timers.span("io.pairs"):
+            first, second = self._pair_columns()
+            self.pairs = list(zip(first.tolist(), second.tolist()))
+        return len(self.pairs)
+
+    def _pair_columns(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The two columns of the pairs list (-1: no read)."""
         n = self.n
-        paired = np.zeros(n, dtype=bool)
-        # sequential fast path, vectorized: consecutive reads (i-1, i) are
-        # pair candidates when both have nonzero read numbers that differ
-        # and their common names match; the loop's prev-reset semantics are
-        # exactly "alternating selection within each run of candidates"
         nm = self.names_S() if n else None
         rn = self._read_nums_vec(nm)
-        if n >= 2 and int(rn.max()) == 0:
-            # unpaired data (no read numbers anywhere): the candidate
-            # mask requires rn != 0 on both sides, so the (n, w) prefix
-            # comparison below can never select — skip straight to the
-            # every-read-is-single fast path
-            self.pairs = list(zip(range(n), (-1,) * n))
-            return n
-        if n >= 2:
-            w = nm.dtype.itemsize
-            ch = nm.view(np.uint8).reshape(n, w) if w else \
-                np.zeros((n, 0), np.uint8)
-            ln = (ch != 0).argmin(axis=1) if w else np.zeros(n, np.int64)
-            if w:
-                ln[ch[:, -1] != 0] = w
-            # common_name: drop trailing char when name[-2] == '/'
-            slash = np.zeros(n, dtype=bool)
-            if w >= 2:
-                has2 = ln >= 2
-                slash[has2] = ch[np.flatnonzero(has2), ln[has2] - 2] == 0x2f
-                # reference keeps names of length <= 2 whole
-                slash &= ln > 2
-            cln = np.where(slash, ln - 1, ln)
-            prefix_eq = np.zeros(n, dtype=bool)  # name i-1 vs i
-            if w:
-                mask = np.arange(w)[None, :] < cln[:, None]
-                eq = (ch[:-1] == ch[1:]) | ~mask[1:]
-                prefix_eq[1:] = eq.all(axis=1) & (cln[:-1] == cln[1:])
-            cand = np.zeros(n, dtype=bool)
-            cand[1:] = (rn[1:] != 0) & (rn[:-1] != 0) & (rn[1:] != rn[:-1])
-            cand &= prefix_eq
-            # alternating selection within runs of consecutive candidates
-            run_pos = np.zeros(n, dtype=np.int64)
-            c = cand
-            idx = np.flatnonzero(c)
-            if len(idx):
-                grp_start = np.concatenate([[True], np.diff(idx) != 1])
-                run_pos[idx] = np.arange(len(idx)) - \
-                    np.maximum.accumulate(np.where(grp_start,
-                                                   np.arange(len(idx)), -1))
-                sel = idx[run_pos[idx] % 2 == 0]
-                pairs = [[int(i) - 1, int(i)] for i in sel]
-                paired[sel] = True
-                paired[sel - 1] = True
-        # name-matching path for the rest
-        if not pairs and n and int(rn.max()) == 0:
-            # nothing is pairable: every read is its own single entry —
-            # skip the per-read matching loop entirely (unpaired datasets
-            # are the common streaming case)
-            self.pairs = list(zip(range(n), (-1,) * n))
-            return n
-        unmatched = {}
-        for i in np.flatnonzero(~paired):
-            i = int(i)
-            rni = int(rn[i])
-            cn = common_name(self.names[i])
-            if rni and cn in unmatched:
-                p = pairs[unmatched.pop(cn)]
-                if rni == 2 and p[1] == -1:
-                    p[1] = i
-                elif rni == 1 and p[0] == -1:
-                    p[0] = i
-                else:
-                    pairs.append([i, -1] if rni != 2 else [-1, i])
-                continue
-            idx = len(pairs)
-            pairs.append([-1, i] if rni == 2 else [i, -1])
-            if rni:
-                unmatched[cn] = idx
-        self.pairs = [(p[0], p[1]) for p in pairs]
-        return len(self.pairs)
+        if not n or not rn.any():
+            # unpaired data (no read numbers anywhere): every read is its
+            # own single entry
+            timers.count("io.pairs_by_name", 0)
+            timers.count("io.mates_joined_by_name", 0)
+            return np.arange(n), np.full(n, -1)
+        # sequential fast path: consecutive reads (i-1, i) are pair
+        # candidates when both have nonzero read numbers that differ and
+        # their common names match; the loop's prev-reset semantics are
+        # exactly "alternating selection within each run of candidates"
+        w = nm.dtype.itemsize   # names_S() is at least S1
+        ch = nm.view(np.uint8).reshape(n, w)
+        ln = (ch != 0).argmin(axis=1)
+        ln[ch[:, -1] != 0] = w
+        # common_name: drop trailing char when name[-2] == '/'
+        slash = np.zeros(n, dtype=bool)
+        has2 = ln >= 2
+        slash[has2] = ch[np.flatnonzero(has2), ln[has2] - 2] == 0x2f
+        # reference keeps names of length <= 2 whole
+        slash &= ln > 2
+        cln = np.where(slash, ln - 1, ln)
+        mask = np.arange(w)[None, :] < cln[:, None]
+        prefix_eq = np.zeros(n, dtype=bool)  # name i-1 vs i
+        eq = (ch[:-1] == ch[1:]) | ~mask[1:]
+        prefix_eq[1:] = eq.all(axis=1) & (cln[:-1] == cln[1:])
+        cand = np.zeros(n, dtype=bool)
+        cand[1:] = (rn[1:] != 0) & (rn[:-1] != 0) & (rn[1:] != rn[:-1])
+        cand &= prefix_eq
+        sel = _alternate(np.flatnonzero(cand))
+        paired = np.zeros(n, dtype=bool)
+        paired[sel] = True
+        paired[sel - 1] = True
+        # name path for the rest, in read order: a read of read number 0
+        # stays alone; the others group by common name, and within a group
+        # the reads at even ranks open an entry that the next read joins
+        # where the read numbers differ (the reference's unmatched map)
+        rest = np.flatnonzero(~paired)
+        rr = rn[rest]
+        first = np.where(rr == 2, -1, rest)
+        second = np.where(rr == 2, rest, -1)
+        g = rest[rr != 0]
+        # common names of the whole names (a NUL byte, where ln stops, may
+        # sit inside a name): the bytes, then 1 at the common name's end
+        lg = np.fromiter(map(len, self.names), np.int64, n)[g]
+        cl = lg - ((lg > 2) & (ch[g, np.maximum(lg - 2, 0)] == 0x2f))
+        key = np.zeros((len(g), w + 1), np.uint8)
+        key[:, :w] = np.where(np.arange(w)[None, :] < cl[:, None], ch[g], 0)
+        key[np.arange(len(g)), cl] = 1
+        key = key.view("S%d" % (w + 1)).ravel()
+        order = np.argsort(key, kind="stable")
+        ks = key[order]
+        start = np.ones(len(g), dtype=bool)
+        start[1:] = ks[1:] != ks[:-1]
+        # a group's closer: odd rank, the same group as its opener
+        closer = np.zeros(len(g), dtype=bool)
+        closer[_alternate(np.flatnonzero(~start))] = True
+        r = rn[g[order]]
+        join = np.flatnonzero(closer[1:] & (r[1:] != r[:-1])) + 1
+        opener, mate = g[order[join - 1]], g[order[join]]
+        at = np.searchsorted(rest, opener)
+        two = rn[opener] == 2
+        first[at[two]] = mate[two]
+        second[at[~two]] = mate[~two]
+        keep = np.ones(len(rest), dtype=bool)
+        keep[np.searchsorted(rest, mate)] = False
+        timers.count("io.pairs_by_name", len(rest))
+        timers.count("io.mates_joined_by_name", len(join))
+        return (np.concatenate([sel - 1, first[keep]]),
+                np.concatenate([sel, second[keep]]))
 
     @staticmethod
     def _is_pair(name_a, comment_a, name_b, comment_b) -> bool:
@@ -423,6 +431,17 @@ class ReadSet:
         hq = np.repeat(self.has_quals, self.lengths())
         p = np.where(hq, p, 1.0)
         return p
+
+
+def _alternate(idx: np.ndarray) -> np.ndarray:
+    """The 1st, 3rd, 5th, ... of each run of consecutive integers in the
+    sorted idx."""
+    if not len(idx):
+        return idx
+    pos = np.arange(len(idx))
+    run_start = np.concatenate([[True], np.diff(idx) != 1])
+    return idx[(pos - np.maximum.accumulate(np.where(run_start, pos, 0)))
+               % 2 == 0]
 
 
 def _ragged_indices(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:

@@ -35,6 +35,7 @@ FILTER_TREE = {
     "run": [],
     "apps.count_pass": ["run"],
     "io.parse": ["apps.count_pass", "apps.output_pass"],
+    "io.pairs": ["io.parse"],
     "ops.artifact": ["apps.count_pass", "apps.output_pass"],
     "apps.prepare": ["apps.count_pass"],
     "table.add": ["apps.count_pass"],
@@ -195,6 +196,37 @@ def test_counters(traced, reads, app):
         assert c["table.drains"] == table.drains >= 2
         assert c["table.overflow_retries"] == table.overflow_retries
         assert c["table.purged_singletons"] == table.purged_singletons
+        # every name ends in /1: the name matching takes each read of
+        # both passes and joins none
+        assert all(ln.endswith(b"/1") for ln in lines[0::4] if ln)
+        assert c["io.pairs_by_name"] == 2 * c["io.reads"]
+        assert c["io.mates_joined_by_name"] == 0
+        assert record["spans"]["io.pairs"]["calls"] == \
+            record["spans"]["io.parse"]["calls"] - 2
+
+
+def test_two_file_mates_joined_by_name(reads, tmp_path):
+    """A two-file mate pair streams mates into one chunk, the /1 reads
+    before their /2 mates: the name matching joins every mate pair, in
+    both passes."""
+    with open(reads, "rb") as f:
+        lines = f.read().split(b"\n")
+    mates = str(tmp_path / "mates.fastq")
+    with open(mates, "wb") as f:
+        for i in range(0, len(lines) - 3, 4):
+            f.write(b"%s2\n%s\n+\n%s\n" % (lines[i][:-1], lines[i + 1][::-1],
+                                             lines[i + 3][::-1]))
+    pairs = len(lines) // 4
+    timers.enable()
+    assert filter_reads.run(FILTER + ["--out", str(tmp_path / "o"), "31",
+                                      reads, mates]) == 0
+    timers.disable()
+    (record,) = timers.records()
+    c = record["counters"]
+    assert c["io.reads"] == 2 * pairs
+    assert c["io.pairs_by_name"] == 2 * c["io.reads"]
+    assert c["io.mates_joined_by_name"] == 2 * pairs
+    assert record["spans"]["io.pairs"]["parents"] == ["io.parse"]
 
 
 def test_spans_on_the_profiler_timeline(reads, tmp_path):
@@ -280,7 +312,8 @@ def test_fork_pool_spans_reach_the_parent(reads, tmp_path):
     got = json.loads(proc.stdout.strip().split("\n")[-1])
     workers = got["workers"]
     assert sorted(workers) == ["apps.prepare", "apps.score", "io.output",
-                               "io.parse", "ops.artifact", "table.spill"]
+                               "io.pairs", "io.parse", "ops.artifact",
+                               "table.spill"]
     assert workers["io.parse"]["calls"] == 2 * workers["apps.prepare"][
         "calls"] >= 4
     assert {"apps.count_pass", "table.finalize", "apps.purge",
